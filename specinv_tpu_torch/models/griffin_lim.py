@@ -1,0 +1,218 @@
+"""Griffin-Lim / Fast Griffin-Lim phase reconstruction on PyTorch.
+
+Counterpart of ``specinv_tpu/models/griffin_lim.py`` with the reference's
+numerics: momentum factor ``lr = alpha / (1 + alpha)``, projection epsilon
+``1e-16``, the pre-momentum magnitude as the metric / stop-criterion output,
+and the window^2-envelope ISTFT normalization.
+
+Two backends:
+
+* ``'kernel'``: the hand-written CUDA whole-run kernel
+  (``ops/cuda/gl_fullrun``), the counterpart of the JAX ``pallas4`` path
+  (``run_tm_pallas4``).  With ``tol == 0`` all iterations are one queue of
+  kernel launches; with ``tol > 0`` the run is eval segments of ``eva_iter``
+  iterations that emit two reduced sums, then an eval-free tail.  On a CPU
+  tensor it runs the kernel's plain version.
+* ``'fft'``: the per-iteration ``torch.fft`` path (``run_tm``), the JAX
+  ``fft`` backend's counterpart and the speed baseline on the card.
+
+``'auto'`` picks the kernel for a CUDA tensor whose config the kernel takes
+(decided from the config before any launch), otherwise ``'fft'``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import STFT_KWARG_NAMES, STFTConfig
+from ..ops.cuda import gl_fullrun
+from ..ops.framing import pad_center
+from ..ops.stft import istft, make_envelope, stft
+from ..utils.runner import iterate, iterate_segmented, stats_eval_fns, stop_loss_fn
+from ._kernel_driver import PROJ_EPS, make_geometry, make_inv_env
+from .common import prepare_spec_b3, restore_output
+from .phase_init import phase_init_tm
+
+BACKENDS = ("auto", "kernel", "fft")
+
+
+def magnitude_project(spec: torch.Tensor, target_mag: torch.Tensor) -> torch.Tensor:
+    """Replace ``spec``'s magnitude with ``target_mag``."""
+    return spec * (target_mag / (spec.abs() + PROJ_EPS))
+
+
+def init(target_tm, init_spec_tm, cfg: STFTConfig, window, envelope=None):
+    """Initial state ``(x, pre_spec)``."""
+    return istft(init_spec_tm, cfg, window, envelope=envelope), init_spec_tm
+
+
+def step(state, target_tm, lr, cfg: STFTConfig, window, envelope):
+    """One Griffin-Lim iteration. Returns (state, pre-momentum magnitude)."""
+    x, pre_spec = state
+    new_spec = stft(x, cfg, window)
+    output = new_spec.abs()
+    new_spec = new_spec - pre_spec * lr
+    pre_spec = new_spec
+    new_spec = magnitude_project(new_spec, target_tm)
+    return (istft(new_spec, cfg, window, envelope=envelope), pre_spec), output
+
+
+def run_tm(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
+           max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
+           verbose: bool = False, mode: str = "fori", early_stop: bool = True,
+           remat: bool = False) -> torch.Tensor:
+    """Time-major Griffin-Lim on ``torch.fft``: target (B, T, F) -> (B, L)."""
+    envelope = make_envelope(cfg, window, target_tm.shape[-2])
+    state = init(target_tm, init_spec_tm, cfg, window, envelope=envelope)
+
+    def step_fn(st):
+        return step(st, target_tm, lr, cfg, window, envelope)
+
+    state = iterate(
+        step_fn, state, target_tm, max_iter=max_iter, tol=tol, eva_iter=eva_iter,
+        metric=metric, verbose=verbose, mode=mode, early_stop=early_stop,
+        remat=remat,
+    )
+    return state[0]
+
+
+def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
+                  max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
+                  verbose: bool = False, mode: str = "fori",
+                  early_stop: bool = True, remat: bool = False) -> torch.Tensor:
+    """Griffin-Lim through the whole-run kernel (float32), the counterpart of
+    the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L)."""
+    T = target_tm.shape[-2]
+    geo = make_geometry(cfg, T)
+    win32 = window.float()
+    inv_env = make_inv_env(cfg, win32, T, geo)
+    target = target_tm.float().contiguous()
+    pre0 = init_spec_tm.to(torch.complex64)
+    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
+
+    def trim(x_pad):
+        return x_pad[..., geo.p_amt : geo.p_amt + geo.l_out]
+
+    def run(state, n_iters, with_loss=False):
+        return gl_fullrun.fused_gl_run(
+            state[0], state[1], target, win32, inv_env, lr, cfg, n_iters,
+            emit_state=True, with_loss=with_loss,
+        )
+
+    if not (early_stop or verbose):
+        # tol == 0 and no progress reporting: every iteration in one run
+        return trim(gl_fullrun.fused_gl_run(
+            x_pad0, pre0, target, win32, inv_env, lr, cfg, max_iter,
+        ))
+
+    eva_n = min(eva_iter, max_iter)
+
+    def seg_step(state):
+        x, pre, stats = run(state, eva_n, with_loss=True)
+        return (x, pre), stats
+
+    tail_fn = None
+    if max_iter % eva_iter:
+        def tail_fn(state):
+            return run(state, max_iter % eva_iter), None
+
+    loss_fn, metric_fn = stats_eval_fns(metric, target)
+    state = iterate_segmented(
+        seg_step, (x_pad0, pre0), target, max_iter=max_iter, tol=tol,
+        eva_iter=eva_iter, tail_fn=tail_fn, metric=metric, verbose=verbose,
+        loss_fn=loss_fn, metric_fn=metric_fn, mode=mode, remat=remat,
+    )
+    return trim(state[0])
+
+
+def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
+              verbose, mode, backend, early_stop, remat):
+    """Layout transpose + phase seed + loop."""
+    if spec_b3.dtype in (torch.bfloat16, torch.float16):
+        spec_b3 = spec_b3.float()
+    spec_tm = spec_b3.transpose(-1, -2)
+    if spec_tm.is_complex():
+        cmplx_tm, target_tm = spec_tm, spec_tm.abs()
+    else:
+        cmplx_tm, target_tm = phase_init_tm(spec_tm, cfg), spec_tm
+    run = run_tm_kernel if backend == "kernel" else run_tm
+    return run(
+        target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
+        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        early_stop=early_stop, remat=remat,
+    )
+
+
+def resolve_backend(backend: str, cfg: STFTConfig, window, device) -> str:
+    """``'auto'`` -> ``'kernel'`` on CUDA when the kernel takes ``cfg``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    ok = gl_fullrun.supports(cfg, window)
+    if backend == "auto":
+        return "kernel" if device.type == "cuda" and ok else "fft"
+    if backend == "kernel" and not ok:
+        raise ValueError(
+            "the kernel backend needs n_fft a power of two in [16, 4096], "
+            "0 < hop <= n_fft and a real window; use backend='auto' instead"
+        )
+    return backend
+
+
+def _check_precision(precision) -> None:
+    """Both backends compute in float32/float64 on the CUDA cores, the
+    counterpart of the JAX ``HIGHEST``; ``'high'`` (bf16x3 on the TPU, about
+    float32 accuracy) maps there too."""
+    if precision is None or (
+        isinstance(precision, str) and precision.lower() in ("high", "highest")
+    ):
+        return
+    raise ValueError(
+        f"precision {precision!r} is not supported: the port computes in full "
+        "float32 (pass None, 'high' or 'highest')"
+    )
+
+
+def griffin_lim(
+    spec,
+    max_iter: int = 200,
+    tol: float = 1e-6,
+    alpha: float = 0.99,
+    verbose: bool = True,
+    eva_iter: int = 10,
+    metric: str = "sc",
+    mode: str = "fori",
+    backend: str = "auto",
+    precision=None,
+    loss_psum_axes=None,
+    pack: int | None = None,
+    remat: bool = False,
+    **stft_kwargs,
+):
+    """Reference-parity entry point.
+
+    Accepts a magnitude or complex spectrogram ``(F, T)``/``(B, F, T)`` (a
+    tensor on any device, or an array) plus the torch.stft kwarg space, and
+    returns the waveform ``(L,)``/``(B, L)`` on the same device.  ``mode``
+    ('fori' keeps the stop decision on the device, 'while' leaves the loop
+    at the stop), ``backend`` ('auto'/'kernel'/'fft') and ``remat``
+    (recompute each iteration in the backward pass) as in the JAX package.
+    ``loss_psum_axes`` belongs to the parallel wrappers and ``pack`` to the
+    TPU kernel's grid; neither has a counterpart here, so both must stay
+    unset.
+    """
+    if alpha < 0:
+        raise ValueError(f"alpha must be >= 0, got {alpha}")
+    unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
+    if unknown:
+        raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
+    if pack is not None:
+        raise ValueError("pack folds clips into TPU grid steps; the port has no such option")
+    stop_loss_fn(loss_psum_axes)
+    _check_precision(precision)
+    spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
+    backend = resolve_backend(backend, cfg, window, spec_b3.device)
+    x = _full_run(
+        spec_b3, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,
+        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        backend=backend, early_stop=bool(tol > 0), remat=remat,
+    )
+    return restore_output(x, was_2d)

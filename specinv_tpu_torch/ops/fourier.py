@@ -1,0 +1,47 @@
+"""Fourier transforms along the frame axis on ``torch.fft``.
+
+Counterpart of the ``fft`` backend of ``specinv_tpu/ops/fourier.py``: frames
+``(..., T, n_fft)`` <-> spectra ``(..., T, F)``, onesided or two-sided,
+``normalized`` as ``norm='ortho'``.  The JAX package's matmul and four-step
+DFT backends and its measured crossover policy are TPU lowerings and are not
+part of the port; ``'auto'`` is ``'fft'`` here.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import STFTConfig
+
+VALID_DFT_BACKENDS = ("auto", "fft")
+
+
+def resolve_backend(backend: str) -> str:
+    if backend not in VALID_DFT_BACKENDS:
+        raise ValueError(
+            f"unknown DFT backend {backend!r}; expected one of {VALID_DFT_BACKENDS}"
+        )
+    return "fft"
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.Tensor:
+    # torch.fft has no bf16/fp16 CPU kernels: compute half types in float32
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.float()
+    return t
+
+
+def forward(frames: torch.Tensor, cfg: STFTConfig, backend: str = "auto") -> torch.Tensor:
+    """DFT along the last axis of windowed frames -> complex (..., T, F)."""
+    resolve_backend(backend)
+    frames = _compute_dtype(frames)
+    if cfg.onesided and not frames.is_complex():
+        return torch.fft.rfft(frames, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm)
+    return torch.fft.fft(frames, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm)
+
+
+def inverse(spec: torch.Tensor, cfg: STFTConfig, backend: str = "auto") -> torch.Tensor:
+    """Real part of the inverse DFT -> real frames (..., T, n_fft)."""
+    resolve_backend(backend)
+    if cfg.onesided:
+        return torch.fft.irfft(spec, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm)
+    return torch.fft.ifft(spec, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm).real

@@ -1,0 +1,219 @@
+"""Iteration drivers with reference-parity early stopping.
+
+Counterpart of ``specinv_tpu/utils/runner.py``.  The loop runs on the host;
+the stop rule is the reference's (methods.py:180-189): evaluate at
+iterations ``i % eva_iter == eva_iter - 1``, the first evaluation sets
+``init_loss``, and the run stops when ``(prev_loss - l2) / init_loss < tol``
+**and** ``prev_loss > l2``.  The returned state is the state after the
+stopping iteration (the reference's break-out state).
+
+The two modes give the same result:
+
+* ``mode="fori"`` keeps the stop decision on the device: a ``done`` flag
+  freezes the state with ``torch.where`` and the remaining iterations still
+  run, so nothing waits on the device (no host sync per evaluation).
+* ``mode="while"`` reads the decision back at each evaluation and leaves the
+  loop, skipping the work after the stop.
+
+With ``tol == 0`` the condition can never fire (it needs the loss to rise and
+fall at once), so the evaluation is skipped altogether.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from ..metrics import get_metric
+
+StepFn = Callable[..., Tuple]  # state -> (state, output)
+
+_MODES = ("fori", "while")
+
+
+def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = a - b
+    return torch.mean((d * d).real)
+
+
+def stop_loss_fn(axes=None):
+    """``loss_fn`` for the iteration drivers: the default local MSE (None).
+
+    Mesh-reduced losses belong to the parallel wrappers, which the port does
+    not have yet; ``axes`` must be empty.
+    """
+    if axes:
+        raise ValueError("loss_psum_axes needs the parallel wrappers, not ported yet")
+    return None
+
+
+def stats_eval_fns(metric: str, target: torch.Tensor):
+    """``(loss_fn, metric_fn)`` for segments whose eval output is the pair of
+    reduced sums ``[sum (|S|-tgt)^2, sum |S|^2]`` instead of the magnitude
+    plane.  The loss is the array path's MSE; the metrics follow from the
+    sums and the target's own sum of squares (SNR normalizes both sides by
+    the target norm, so it is ``-10*log10(sum_diff2 / sum_tgt2)``)."""
+    get_metric(metric)
+    n_local = float(target.numel())
+    tgt_ss = torch.sum(torch.square(target.float()))
+
+    def loss_fn(stats, _tgt):
+        return stats[0] / n_local
+
+    key = metric.upper()
+
+    def metric_fn(stats, _tgt):
+        if key == "SC":
+            return 10 * (torch.log10(stats[0]) - torch.log10(tgt_ss))
+        if key == "SNR":
+            return -10 * (torch.log10(stats[0]) - torch.log10(tgt_ss))
+        return 10 * (torch.log10(stats[1]) - torch.log10(stats[0]))
+
+    return loss_fn, metric_fn
+
+
+def _progress_print(i, metric_name, metric_val, loss):
+    print(f"iter {int(i) + 1}: {metric_name}={float(metric_val):.4f} loss={float(loss):.3e}")
+
+
+def _freeze(done, old, new):
+    """``new`` unless ``done`` (elementwise over a state tuple)."""
+    if isinstance(old, tuple):
+        return tuple(torch.where(done, o, n) for o, n in zip(old, new))
+    return torch.where(done, old, new)
+
+
+class _StopRule:
+    """The reference's stop rule, carried as device scalars."""
+
+    def __init__(self, tol, like: torch.Tensor):
+        self.tol = torch.as_tensor(tol, dtype=like.dtype, device=like.device)
+        nan = torch.full((), float("nan"), dtype=like.dtype, device=like.device)
+        self.prev, self.init = nan, nan
+        self.done = torch.zeros((), dtype=torch.bool, device=like.device)
+
+    def update(self, l2: torch.Tensor) -> None:
+        l2 = l2.to(self.prev.dtype)
+        first = torch.isnan(self.init)
+        init = torch.where(first, l2, self.init)
+        stop = ~first & ((self.prev - l2) / init < self.tol) & (self.prev > l2)
+        self.prev, self.init, self.done = l2, init, self.done | stop
+
+
+def _checkpointed(fn):
+    from torch.utils.checkpoint import checkpoint
+
+    def run(state):
+        return checkpoint(fn, state, use_reentrant=False)
+
+    return run
+
+
+def _real_part(target: torch.Tensor) -> torch.Tensor:
+    return target.real if target.is_complex() else target
+
+
+def iterate(
+    step_fn: StepFn,
+    state,
+    target: torch.Tensor,
+    max_iter: int,
+    tol,
+    eva_iter: int = 10,
+    metric: str = "sc",
+    verbose: bool = False,
+    mode: str = "fori",
+    loss_fn: Callable = None,
+    early_stop: bool = True,
+    remat: bool = False,
+):
+    """Run ``state, output = step_fn(state)`` for up to ``max_iter`` iterations.
+
+    ``output`` is compared against ``target`` (MSE, or ``loss_fn``) for the
+    stop rule.  ``remat=True`` recomputes each step's internals in the
+    backward pass (``torch.utils.checkpoint``).  Returns the final state.
+    """
+    if not (eva_iter > 0 and max_iter > 0):
+        raise ValueError("eva_iter and max_iter must be positive")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r} (expected 'fori' or 'while')")
+    metric_fn = get_metric(metric)
+    if loss_fn is None:
+        loss_fn = _mse
+    if remat:
+        step_fn = _checkpointed(step_fn)
+
+    no_eval = not verbose and (
+        not early_stop or (isinstance(tol, (int, float)) and tol == 0)
+    )
+    if no_eval:
+        for _ in range(max_iter):
+            state, _out = step_fn(state)
+        return state
+
+    rule = _StopRule(tol, _real_part(target))
+    for i in range(max_iter):
+        new_state, out = step_fn(state)
+        state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
+        if i % eva_iter != eva_iter - 1:
+            continue
+        l2 = loss_fn(out, target)
+        if verbose:
+            _progress_print(i, metric, metric_fn(out, target), l2)
+        rule.update(l2)  # done is sticky: later updates cannot undo a stop
+        if mode == "while" and bool(rule.done):
+            break
+    return state
+
+
+def iterate_segmented(
+    seg_fn: StepFn,
+    state,
+    target: torch.Tensor,
+    max_iter: int,
+    tol,
+    eva_iter: int,
+    tail_fn: Callable = None,
+    metric: str = "sc",
+    verbose: bool = False,
+    loss_fn: Callable = None,
+    metric_fn: Callable = None,
+    mode: str = "fori",
+    remat: bool = False,
+):
+    """:func:`iterate` for whole-segment steps.
+
+    The stop rule only consults the loss every ``eva_iter`` iterations, so an
+    early-stopping run is exactly ``max_iter // eva_iter`` segments of
+    ``eva_iter`` iterations (``seg_fn(state) -> (state, out)`` runs one and
+    returns the LAST iteration's eval output), then an eval-free tail of
+    ``max_iter % eva_iter`` iterations (``tail_fn``), run only if the stop
+    never fired.  ``loss_fn``/``metric_fn`` take ``(out, target)``.
+    """
+    if not (eva_iter > 0 and max_iter > 0):
+        raise ValueError("eva_iter and max_iter must be positive")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r} (expected 'fori' or 'while')")
+    if metric_fn is None:
+        metric_fn = get_metric(metric)
+    if loss_fn is None:
+        loss_fn = _mse
+    if remat:
+        seg_fn = _checkpointed(seg_fn)
+        if tail_fn is not None:
+            tail_fn = _checkpointed(tail_fn)
+
+    rule = _StopRule(tol, _real_part(target))
+    for k in range(max_iter // eva_iter):
+        new_state, out = seg_fn(state)
+        l2 = loss_fn(out, target)
+        if verbose:
+            _progress_print((k + 1) * eva_iter - 1, metric, metric_fn(out, target), l2)
+        state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
+        rule.update(l2)
+        if mode == "while" and bool(rule.done):
+            return state
+    if tail_fn is not None and max_iter % eva_iter:
+        new_state, _ = tail_fn(state)
+        state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
+    return state
