@@ -4,18 +4,21 @@ The port of ``specinv_tpu`` (JAX/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for an NVIDIA H100.  This package imports neither
 JAX nor ``specinv_tpu``; it exports what has been ported so far: the
 Griffin-Lim main path (SPSI phase seed, the whole-run Griffin-Lim kernel and
-its ``torch.fft`` counterpart), the STFT pair and the metrics.
+its ``torch.fft`` counterpart), ADMM (the whole-run ADMM kernel and the
+literal ``torch.fft`` chain), the STFT pair and the metrics.
 """
 name = "specinv_tpu_torch"
 __version__ = "0.1.0"
 
 from .config import STFTConfig, canonicalize  # noqa: F401
 from .metrics import sc, ser, snr, spectral_convergence  # noqa: F401
-from .models import griffin_lim, phase_init  # noqa: F401
+from .models import ADMM, admm, griffin_lim, phase_init  # noqa: F401
 from .transforms import istft, stft  # noqa: F401
 
 __all__ = [
     "griffin_lim",
+    "ADMM",
+    "admm",
     "phase_init",
     "sc",
     "snr",

@@ -37,7 +37,8 @@ def state_from_jax(x_pad, pre_re_perm, pre_im_perm, target_perm, n_fft: int, T: 
     samples (the JAX tail past ``lp`` holds only padded frames); the
     permuted planes lose their ``t_pad - T`` padded rows and become
     ``(B, T, F)`` with ``F = n_fft//2 + 1`` (onesided) or ``n_fft``; ``pre``
-    is complex.
+    is complex.  Any state pair converts the same way: the Griffin-Lim
+    momentum planes and the ADMM ``Y_re``/``Y_im`` planes alike.
     """
     n_bins = n_fft // 2 + 1 if onesided else n_fft
 

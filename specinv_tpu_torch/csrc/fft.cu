@@ -2,7 +2,7 @@
 //
 // These exist so the transform can be held against its plain PyTorch
 // version (specinv_tpu_torch/ops/cuda/fft.py::fft_reference) on its own;
-// the Griffin-Lim kernel (gl_fullrun.cu) inlines the same device functions.
+// the whole-run kernels (fullrun.cuh) inline the same device functions.
 // Replaces specinv_tpu/ops/pallas/fft4.py fwd4_lane (:322) and
 // inv4_real_lane (:367); see fft.cuh for the design and what bounds it.
 #include <cuda_runtime.h>
@@ -40,11 +40,6 @@ __global__ void fft_c2r_kernel(const float2* __restrict__ spec,
   }
 }
 
-int threads_for(int n) {
-  int t = n / 4;
-  return t < 32 ? 32 : (t > 256 ? 256 : t);
-}
-
 }  // namespace
 
 extern "C" {
@@ -53,7 +48,7 @@ extern "C" {
 int specinv_fft_r2c(const float* x, float2* out, const float2* tw, int rows,
                     int n, int log2n, int n_bins, float scale,
                     cudaStream_t stream) {
-  fft_r2c_kernel<<<rows, threads_for(n), n * sizeof(float2), stream>>>(
+  fft_r2c_kernel<<<rows, specinv::frame_threads(n), n * sizeof(float2), stream>>>(
       x, out, tw, n, log2n, n_bins, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -63,7 +58,7 @@ int specinv_fft_r2c(const float* x, float2* out, const float2* tw, int rows,
 int specinv_fft_c2r(const float2* spec, float* out, const float2* tw, int rows,
                     int n, int log2n, int n_bins, int onesided, float scale,
                     cudaStream_t stream) {
-  fft_c2r_kernel<<<rows, threads_for(n), n * sizeof(float2), stream>>>(
+  fft_c2r_kernel<<<rows, specinv::frame_threads(n), n * sizeof(float2), stream>>>(
       spec, out, tw, n, log2n, n_bins, onesided, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,12 @@
 
 namespace specinv {
 
+// Threads per block of a one-frame transform: n/4, clamped to [32, 256].
+inline int frame_threads(int n) {
+  const int t = n / 4;
+  return t < 32 ? 32 : (t > 256 ? 256 : t);
+}
+
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }

@@ -1,3 +1,4 @@
-"""Inversion algorithms (ported so far: Griffin-Lim and the SPSI seed)."""
+"""Inversion algorithms (ported so far: Griffin-Lim, ADMM and the SPSI seed)."""
+from .admm import ADMM, admm  # noqa: F401
 from .griffin_lim import griffin_lim  # noqa: F401
 from .phase_init import phase_init  # noqa: F401

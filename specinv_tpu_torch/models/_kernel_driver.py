@@ -1,4 +1,4 @@
-"""Geometry and glue for the Griffin-Lim kernel driver.
+"""Geometry, glue and plain twins for the whole-run kernel drivers.
 
 Counterpart of ``specinv_tpu/models/_pallas_driver.py``.  The kernel path
 iterates a signal held in *padded coordinates*: the center padding lives
@@ -22,6 +22,7 @@ import torch
 from ..config import STFTConfig
 from ..ops import fourier
 from ..ops.framing import frame, ola_envelope, overlap_add
+from ..utils.runner import iterate_segmented, stats_eval_fns
 
 PROJ_EPS = 1e-16
 
@@ -43,13 +44,13 @@ def make_geometry(cfg: STFTConfig, T: int) -> PaddedGeometry:
 def make_inv_env(
     cfg: STFTConfig, window: torch.Tensor, T: int, geo: PaddedGeometry
 ) -> torch.Tensor:
-    """``interior_mask / window^2-envelope`` multiplier, length ``lp``
-    (exact envelope zeros guarded to 1, as in ``istft``)."""
+    """``interior_mask / window^2-envelope`` multiplier, length ``lp``, in
+    the window's type (exact envelope zeros guarded to 1, as in ``istft``)."""
     env = ola_envelope(window * window, T, cfg.hop_length)
     env_safe = torch.where(env == 0, torch.ones_like(env), env)
     interior = torch.zeros(geo.lp, dtype=torch.bool, device=env.device)
     interior[geo.p_amt : geo.p_amt + geo.l_out] = True
-    return torch.where(interior, 1.0 / env_safe, torch.zeros_like(env)).float()
+    return torch.where(interior, 1.0 / env_safe, torch.zeros_like(env))
 
 
 def repad_edges(x_div: torch.Tensor, cfg: STFTConfig, geo: PaddedGeometry) -> torch.Tensor:
@@ -88,3 +89,68 @@ def gl_twin(state, target, window, inv_env, lr, cfg: STFTConfig, geo: PaddedGeom
     fr = fourier.inverse(s * (target / norm), cfg) * window
     y = overlap_add(fr, cfg.hop_length) * inv_env
     return (repad_edges(y, cfg, geo), s), mag
+
+
+def admm_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedGeometry,
+              valid_t: int):
+    """One DR-ADMM iteration of the kernel's math in plain PyTorch, the
+    counterpart of the JAX ``admm_xla_twin4``.
+
+    ``state = (x_pad (B, lp), Y (B, T, F) complex)``, the Douglas-Rachford
+    one-variable form of the reference's ``(X, Y, U)`` chain (only ``Y =
+    X + U`` persists); returns ``((x_pad, Y'), mag)`` with ``mag`` the
+    pre-update ``|R|``.  Frames ``t >= valid_t`` get ``Y' = 0``.  Like
+    :func:`gl_twin` it is the kernel's CPU path, its check on the card and
+    its backward.
+    """
+    x_pad, Y = state
+    frames = frame(x_pad, cfg.n_fft, cfg.hop_length) * window
+    r = fourier.forward(frames, cfg)
+    mag = torch.sqrt(r.real * r.real + r.imag * r.imag + 1e-30)
+    z = (rho * Y + r) / (1.0 + rho)  # true division, as the JAX kernels do
+    u = Y - z
+    t = z - u
+    norm = torch.sqrt(t.real * t.real + t.imag * t.imag + 1e-30) + PROJ_EPS
+    y_new = t * (target / norm) + u
+    if valid_t < y_new.shape[-2]:
+        valid = torch.arange(y_new.shape[-2], device=y_new.device) < valid_t
+        y_new = torch.where(valid[:, None], y_new, torch.zeros_like(y_new))
+    fr = fourier.inverse(y_new, cfg) * window
+    y = overlap_add(fr, cfg.hop_length) * inv_env
+    return (repad_edges(y, cfg, geo), y_new), mag
+
+
+def run_kernel_loop(run, state0, target, geo: PaddedGeometry, max_iter: int, tol,
+                    eva_iter: int, metric: str, verbose: bool, mode: str,
+                    early_stop: bool, remat: bool) -> torch.Tensor:
+    """Drive a whole-run kernel, the counterpart of the loop in the JAX
+    ``run_tm_pallas4`` drivers; returns the trimmed signal ``(B, l_out)``.
+
+    ``run(state, n_iters, **flags)`` calls the kernel wrapper from
+    ``state = (x_pad, plane)`` with the wrapper's ``emit_state`` and
+    ``with_loss`` flags.  With no evaluation (``tol == 0``, not verbose) all
+    ``max_iter`` iterations are one queue of launches; otherwise the run is
+    eval segments of ``eva_iter`` iterations whose last iteration emits the
+    two reduced sums, then an eval-free tail of ``max_iter % eva_iter``.
+    """
+    if not (early_stop or verbose):
+        x_pad = run(state0, max_iter)
+    else:
+        eva_n = min(eva_iter, max_iter)
+
+        def seg_step(state):
+            x, plane, stats = run(state, eva_n, emit_state=True, with_loss=True)
+            return (x, plane), stats
+
+        tail_fn = None
+        if max_iter % eva_iter:
+            def tail_fn(state):
+                return run(state, max_iter % eva_iter, emit_state=True), None
+
+        loss_fn, metric_fn = stats_eval_fns(metric, target)
+        x_pad = iterate_segmented(
+            seg_step, state0, target, max_iter=max_iter, tol=tol,
+            eva_iter=eva_iter, tail_fn=tail_fn, metric=metric, verbose=verbose,
+            loss_fn=loss_fn, metric_fn=metric_fn, mode=mode, remat=remat,
+        )[0]
+    return x_pad[..., geo.p_amt : geo.p_amt + geo.l_out]

@@ -1,0 +1,179 @@
+"""ADMM phase retrieval (Bregman / proximal-splitting form) on PyTorch.
+
+Counterpart of ``specinv_tpu/models/admm.py``, with the reference's update
+order:
+
+    R = stft(x);  Z = (rho*Y + R) / (1 + rho);  U += X - Z
+    X = proj_mag(Z - U);  Y = X + U;  x = istft(Y)
+
+with ``rho = 1`` behaving like Griffin-Lim, and the pre-projection magnitude
+``|R|`` as the metric / stop-criterion output.
+
+Two backends, chosen as in ``griffin_lim`` (``resolve_backend``):
+
+* ``'kernel'``: the hand-written CUDA whole-run kernel
+  (``ops/cuda/admm_fullrun``), the counterpart of the JAX ``pallas4`` path
+  (``run_tm_pallas4``).  It carries the Douglas-Rachford one-variable
+  reduction of the chain: since ``Y = X + U``, ``U' = U + X - Z = Y - Z`` and
+  only ``Y`` persists.  On the card it computes in float32; on a CPU tensor
+  it runs the kernel's plain version in the input's precision.
+* ``'fft'``: the literal ``(X, Y, U, x)`` chain on ``torch.fft``
+  (``run_tm``), the parity anchor and the speed baseline on the card.
+
+The JAX ``'pallas'`` backend (direct-DFT ADMM) has no counterpart yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import STFTConfig
+from ..ops.cuda import admm_fullrun
+from ..ops.framing import pad_center
+from ..ops.stft import istft, make_envelope, stft
+from ..utils.runner import iterate
+from ._kernel_driver import make_geometry, make_inv_env, run_kernel_loop
+from .common import prepare_spec_b3, restore_output
+from .griffin_lim import check_args, magnitude_project, resolve_backend
+from .phase_init import phase_init_tm
+
+
+class ADMMState(NamedTuple):
+    X: torch.Tensor  # (B, T, F) complex, projection-side variable
+    Y: torch.Tensor  # (B, T, F) complex, synthesis-side variable
+    U: torch.Tensor  # (B, T, F) complex, scaled dual variable
+    x: torch.Tensor  # (B, L) waveform
+
+
+def init(init_spec_tm, cfg: STFTConfig, window, envelope=None) -> ADMMState:
+    """Initial state: ``X = Y`` = the seeded spectrum, ``U = 0``."""
+    x = istft(init_spec_tm, cfg, window, envelope=envelope)
+    return ADMMState(X=init_spec_tm, Y=init_spec_tm,
+                     U=torch.zeros_like(init_spec_tm), x=x)
+
+
+def step(state, target_tm, rho, cfg: STFTConfig, window, envelope):
+    """One ADMM iteration. Returns (state, pre-projection magnitude)."""
+    X, Y, U, x = state  # the runner may hand back a plain tuple
+    R = stft(x, cfg, window)
+    output = R.abs()
+    Z = (rho * Y + R) / (1 + rho)
+    U = U + X - Z
+    X = magnitude_project(Z - U, target_tm)
+    Y = X + U
+    x = istft(Y, cfg, window, envelope=envelope)
+    return ADMMState(X=X, Y=Y, U=U, x=x), output
+
+
+def run_tm(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
+           max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
+           verbose: bool = False, mode: str = "fori", early_stop: bool = True,
+           remat: bool = False) -> torch.Tensor:
+    """Time-major ADMM on ``torch.fft``, the literal (X, Y, U, x) chain:
+    target (B, T, F) -> (B, L)."""
+    envelope = make_envelope(cfg, window, target_tm.shape[-2])
+    state = init(init_spec_tm, cfg, window, envelope=envelope)
+
+    def step_fn(st):
+        return step(st, target_tm, rho, cfg, window, envelope)
+
+    state = iterate(
+        step_fn, state, target_tm, max_iter=max_iter, tol=tol, eva_iter=eva_iter,
+        metric=metric, verbose=verbose, mode=mode, early_stop=early_stop,
+        remat=remat,
+    )
+    return state[3]
+
+
+def run_tm_kernel(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
+                  max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
+                  verbose: bool = False, mode: str = "fori",
+                  early_stop: bool = True, remat: bool = False) -> torch.Tensor:
+    """ADMM through the whole-run kernel in the DR form, the counterpart of
+    the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L).
+
+    The initial state is ``Y0`` = the seed (``U0 = 0``) and ``x0 =
+    istft(seed)`` in padded coordinates.  The kernel takes float32; for CPU
+    tensors its plain version keeps the input's precision, which lets the DR
+    form be held to the literal chain in float64.
+    """
+    T = target_tm.shape[-2]
+    geo = make_geometry(cfg, T)
+    real = torch.float32 if target_tm.is_cuda else target_tm.dtype
+    win = window.to(real)
+    inv_env = make_inv_env(cfg, win, T, geo)
+    target = target_tm.to(real).contiguous()
+    y0 = init_spec_tm.to(torch.complex64 if real == torch.float32 else torch.complex128)
+    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).to(real), cfg)
+
+    def run(state, n_iters, **flags):
+        return admm_fullrun.fused_admm_run(
+            state[0], state[1], target, win, inv_env, rho, cfg, n_iters, **flags)
+
+    return run_kernel_loop(
+        run, (x_pad0, y0), target, geo, max_iter=max_iter, tol=tol,
+        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        early_stop=early_stop, remat=remat,
+    )
+
+
+def _full_run(spec_b3, window, rho, tol, cfg, max_iter, eva_iter, metric,
+              verbose, mode, backend, early_stop, remat):
+    """Layout transpose + phase seed + loop."""
+    if spec_b3.dtype in (torch.bfloat16, torch.float16):
+        spec_b3 = spec_b3.float()
+    spec_tm = spec_b3.transpose(-1, -2)
+    if spec_tm.is_complex():
+        cmplx_tm, target_tm = spec_tm, spec_tm.abs()
+    else:
+        cmplx_tm, target_tm = phase_init_tm(spec_tm, cfg), spec_tm
+    run = run_tm_kernel if backend == "kernel" else run_tm
+    return run(
+        target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
+        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        early_stop=early_stop, remat=remat,
+    )
+
+
+def ADMM(
+    spec,
+    max_iter: int = 1000,
+    tol: float = 1e-6,
+    rho: float = 0.1,
+    verbose: bool = True,
+    eva_iter: int = 10,
+    metric: str = "sc",
+    mode: str = "fori",
+    backend: str = "auto",
+    precision=None,
+    loss_psum_axes=None,
+    pack: int | None = None,
+    remat: bool = False,
+    **stft_kwargs,
+):
+    """Reference-parity entry point.
+
+    Accepts a magnitude or complex spectrogram ``(F, T)``/``(B, F, T)`` (a
+    tensor on any device, or an array) plus the torch.stft kwarg space, and
+    returns the waveform ``(L,)``/``(B, L)`` on the same device.  ``mode``,
+    ``backend`` ('auto'/'kernel'/'fft'), ``precision`` and ``remat`` as on
+    :func:`griffin_lim`; ``loss_psum_axes`` and ``pack`` must stay unset.
+    """
+    if not (eva_iter > 0 and max_iter > 0 and tol >= 0):
+        raise ValueError(
+            f"need eva_iter > 0, max_iter > 0 and tol >= 0 "
+            f"(got {eva_iter}, {max_iter}, {tol})"
+        )
+    check_args(stft_kwargs, precision, loss_psum_axes, pack)
+    spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
+    backend = resolve_backend(backend, cfg, window, spec_b3.device)
+    x = _full_run(
+        spec_b3, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,
+        metric=metric, verbose=verbose, mode=mode, backend=backend,
+        early_stop=bool(tol > 0), remat=remat,
+    )
+    return restore_output(x, was_2d)
+
+
+admm = ADMM

@@ -27,8 +27,8 @@ from ..config import STFT_KWARG_NAMES, STFTConfig
 from ..ops.cuda import gl_fullrun
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
-from ..utils.runner import iterate, iterate_segmented, stats_eval_fns, stop_loss_fn
-from ._kernel_driver import PROJ_EPS, make_geometry, make_inv_env
+from ..utils.runner import iterate, stop_loss_fn
+from ._kernel_driver import PROJ_EPS, make_geometry, make_inv_env, run_kernel_loop
 from .common import prepare_spec_b3, restore_output
 from .phase_init import phase_init_tm
 
@@ -89,39 +89,15 @@ def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     pre0 = init_spec_tm.to(torch.complex64)
     x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
 
-    def trim(x_pad):
-        return x_pad[..., geo.p_amt : geo.p_amt + geo.l_out]
-
-    def run(state, n_iters, with_loss=False):
+    def run(state, n_iters, **flags):
         return gl_fullrun.fused_gl_run(
-            state[0], state[1], target, win32, inv_env, lr, cfg, n_iters,
-            emit_state=True, with_loss=with_loss,
-        )
+            state[0], state[1], target, win32, inv_env, lr, cfg, n_iters, **flags)
 
-    if not (early_stop or verbose):
-        # tol == 0 and no progress reporting: every iteration in one run
-        return trim(gl_fullrun.fused_gl_run(
-            x_pad0, pre0, target, win32, inv_env, lr, cfg, max_iter,
-        ))
-
-    eva_n = min(eva_iter, max_iter)
-
-    def seg_step(state):
-        x, pre, stats = run(state, eva_n, with_loss=True)
-        return (x, pre), stats
-
-    tail_fn = None
-    if max_iter % eva_iter:
-        def tail_fn(state):
-            return run(state, max_iter % eva_iter), None
-
-    loss_fn, metric_fn = stats_eval_fns(metric, target)
-    state = iterate_segmented(
-        seg_step, (x_pad0, pre0), target, max_iter=max_iter, tol=tol,
-        eva_iter=eva_iter, tail_fn=tail_fn, metric=metric, verbose=verbose,
-        loss_fn=loss_fn, metric_fn=metric_fn, mode=mode, remat=remat,
+    return run_kernel_loop(
+        run, (x_pad0, pre0), target, geo, max_iter=max_iter, tol=tol,
+        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        early_stop=early_stop, remat=remat,
     )
-    return trim(state[0])
 
 
 def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
@@ -143,7 +119,9 @@ def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
 
 
 def resolve_backend(backend: str, cfg: STFTConfig, window, device) -> str:
-    """``'auto'`` -> ``'kernel'`` on CUDA when the kernel takes ``cfg``."""
+    """``'auto'`` -> ``'kernel'`` on CUDA when the whole-run kernels take
+    ``cfg`` (decided from the config, before any launch), else ``'fft'``.
+    Shared by ``griffin_lim`` and ``ADMM``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     ok = gl_fullrun.supports(cfg, window)
@@ -151,16 +129,25 @@ def resolve_backend(backend: str, cfg: STFTConfig, window, device) -> str:
         return "kernel" if device.type == "cuda" and ok else "fft"
     if backend == "kernel" and not ok:
         raise ValueError(
-            "the kernel backend needs n_fft a power of two in [16, 4096], "
-            "0 < hop <= n_fft and a real window; use backend='auto' instead"
+            f"the kernel backend needs {gl_fullrun.UNSUPPORTED}; use backend='auto' instead"
         )
     return backend
 
 
-def _check_precision(precision) -> None:
-    """Both backends compute in float32/float64 on the CUDA cores, the
+def check_args(stft_kwargs, precision, loss_psum_axes, pack) -> None:
+    """The argument checks ``griffin_lim`` and ``ADMM`` share.
+
+    Both backends compute in float32/float64 on the CUDA cores, the
     counterpart of the JAX ``HIGHEST``; ``'high'`` (bf16x3 on the TPU, about
-    float32 accuracy) maps there too."""
+    float32 accuracy) maps there too.  ``loss_psum_axes`` belongs to the
+    parallel wrappers and ``pack`` to the TPU kernel's grid; neither has a
+    counterpart here."""
+    unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
+    if unknown:
+        raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
+    if pack is not None:
+        raise ValueError("pack folds clips into TPU grid steps; the port has no such option")
+    stop_loss_fn(loss_psum_axes)
     if precision is None or (
         isinstance(precision, str) and precision.lower() in ("high", "highest")
     ):
@@ -201,13 +188,7 @@ def griffin_lim(
     """
     if alpha < 0:
         raise ValueError(f"alpha must be >= 0, got {alpha}")
-    unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
-    if unknown:
-        raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
-    if pack is not None:
-        raise ValueError("pack folds clips into TPU grid steps; the port has no such option")
-    stop_loss_fn(loss_psum_axes)
-    _check_precision(precision)
+    check_args(stft_kwargs, precision, loss_psum_axes, pack)
     spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
     backend = resolve_backend(backend, cfg, window, spec_b3.device)
     x = _full_run(

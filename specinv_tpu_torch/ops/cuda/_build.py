@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``specinv_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-one shared library with a plain C interface, which ``ctypes`` loads.  The
+``nvcc`` compiles every ``specinv_tpu_torch/csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads.  The
 library lands in ``build/specinv_tpu_torch/`` at the checkout root, named by
 a hash of the sources and flags, so a change to any source rebuilds it.
 Nothing here runs at import: importing the package needs no ``nvcc``.
@@ -20,10 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "specinv_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +37,13 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,           # B T n log2n hop n_bins lp onesided
         _I, _I, _I,                               # p_amt e pad_mode
         _F, _F, _F, _I,                           # lr fscale iscale valid_t
+        _P,                                       # stream
+    ],
+    "specinv_admm_iteration": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,   # buffers
+        _I, _I, _I, _I, _I, _I, _I, _I,           # B T n log2n hop n_bins lp onesided
+        _I, _I, _I,                               # p_amt e pad_mode
+        _F, _F, _F, _I,                           # rho fscale iscale valid_t
         _P,                                       # stream
     ],
 }
@@ -77,16 +83,34 @@ def build(force: bool = False) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp), *cu]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, failures = [], []
+    for cmd, obj, proc in jobs:
+        log = proc.communicate()[0]
+        objs.append(str(obj))
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    try:
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - start
     return out
 

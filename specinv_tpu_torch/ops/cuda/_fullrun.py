@@ -1,0 +1,126 @@
+"""What the whole-run kernels share: the config check, the launch queue, the
+return contract and the gradient replay.
+
+``csrc/fullrun.cuh`` is one iteration engine (a frame launch and an OLA
+launch) with an algorithm-specific middle; ``gl_fullrun`` and
+``admm_fullrun`` wrap its two C entry points.  Both keep the signal
+``x_pad (B, lp)`` in padded coordinates and the state and target as
+``(B, T, F)`` planes in natural bin order, and return
+``x[, state][, mag][, stats]``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...config import STFTConfig
+from ...models._kernel_driver import make_geometry
+from . import _build
+from .fft import scales, supported_size, twiddles
+
+PAD_CODES = {"constant": 0, "reflect": 1, "replicate": 2, "circular": 3}
+
+UNSUPPORTED = "n_fft a power of two in [16, 4096], 0 < hop <= n_fft and a real window"
+
+
+def supports(cfg: STFTConfig, window) -> bool:
+    """Whether the kernels take this config: n_fft a power of two in
+    [16, 4096], 0 < hop <= n_fft, and a real window."""
+    return (
+        supported_size(cfg.n_fft)
+        and 0 < cfg.hop_length <= cfg.n_fft
+        and not torch.as_tensor(window).is_complex()
+    )
+
+
+def outputs(x, state, mag, stats, emit_state, with_mag, with_loss):
+    """``x[, state][, mag][, stats]``, or ``x`` alone."""
+    if not (emit_state or with_mag or with_loss):
+        return x
+    out = [x]
+    if emit_state:
+        out.append(state)
+    if with_mag:
+        out.append(mag)
+    if with_loss:
+        out.append(stats)
+    return tuple(out)
+
+
+def valid_frames(valid_t: int, T: int) -> int:
+    """The frame count the eval sums (and ADMM's row mask) cover: 0 is T."""
+    if not 0 <= valid_t <= T:
+        raise ValueError(f"valid_t={valid_t} must lie in [0, T={T}]")
+    return valid_t or T
+
+
+def eval_sums(mag, target, valid_t: int):
+    """Plain ``[sum (|S|-tgt)^2, sum |S|^2]`` over the first valid frames."""
+    v = valid_frames(valid_t, target.shape[-2])
+    m, tg = mag[:, :v], target[:, :v]
+    return torch.stack([torch.sum((m - tg) ** 2), torch.sum(m * m)])
+
+
+def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
+           cfg: STFTConfig, n_iters, with_mag, with_loss, valid_t):
+    """Queue ``n_iters`` iterations of the C entry point ``entry`` on the
+    current stream, calling ``count()`` before each; returns
+    ``(x, state, mag, stats)``."""
+    B, T, n_bins = target.shape
+    n, hop = cfg.n_fft, cfg.hop_length
+    geo = make_geometry(cfg, T)
+    dev = x_pad.device
+    if n_bins != cfg.num_freqs:
+        raise ValueError(f"target has {n_bins} bins, the config {cfg.num_freqs}")
+    for name, t, dtype, shape in (
+        ("x_pad", x_pad, torch.float32, (B, geo.lp)),
+        ("state", state, torch.complex64, (B, T, n_bins)),
+        ("target", target, torch.float32, (B, T, n_bins)),
+        ("window", window, torch.float32, (n,)),
+        ("inv_env", inv_env, torch.float32, (geo.lp,)),
+    ):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    target, window, inv_env = (t.contiguous() for t in (target, window, inv_env))
+    x_a = x_pad.contiguous().clone()
+    x_b = torch.empty_like(x_a)
+    state = state.contiguous().clone()  # updated in place by the kernel
+    frames = torch.empty((B, T, n), dtype=torch.float32, device=dev)
+    mag = torch.empty((B, T, n_bins), dtype=torch.float32, device=dev) if with_mag else None
+    partial = torch.zeros((B, T, 2), dtype=torch.float32, device=dev) if with_loss else None
+    fscale, iscale = scales(n, cfg.normalized)
+    tw = twiddles(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = getattr(_build.library(), entry)
+    for it in range(n_iters):
+        last = it == n_iters - 1
+        count()
+        code = fn(
+            x_a.data_ptr(), x_b.data_ptr(), state.data_ptr(), target.data_ptr(),
+            window.data_ptr(), tw.data_ptr(), inv_env.data_ptr(), frames.data_ptr(),
+            mag.data_ptr() if (with_mag and last) else None,
+            partial.data_ptr() if (with_loss and last) else None,
+            B, T, n, n.bit_length() - 1, hop, n_bins, geo.lp, int(cfg.onesided),
+            geo.p_amt, geo.e, PAD_CODES[cfg.pad_mode],
+            float(scalar), fscale, iscale, valid_frames(valid_t, T), stream,
+        )
+        _build.check(code, entry)
+        x_a, x_b = x_b, x_a
+    stats = partial.sum(dim=(0, 1)) if with_loss else None
+    return x_a, state, mag, stats
+
+
+def replay_backward(ctx, reference, g_x, g_state):
+    """The backward of a kernel's ``autograd.Function``: replay its plain
+    version under autograd from the saved inputs ``(x_pad, state, target,
+    window, inv_env)`` and ``ctx.scalar/cfg/n_iters/valid_t``."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        x, state = reference(*inputs, ctx.scalar, ctx.cfg, ctx.n_iters,
+                             emit_state=True, valid_t=ctx.valid_t)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad((x, state), wrt, (g_x, g_state), allow_unused=True))
+    return [next(grads) if t.requires_grad else None for t in inputs]

@@ -4,7 +4,10 @@ The port's fused_gl_run takes its plain version for CPU tensors; it is held
 against the JAX driver gl_fullrun4.fused_gl_run run in Pallas interpret mode
 at precision=HIGHEST, on the same state carried across by
 convert.state_from_jax.  n_fft 512, hop 128, B=2, 60 frames, 5 iterations
-(as tests/test_pallas.py), every pad mode and center=False.
+(as tests/test_pallas.py), every pad mode and center=False.  With lane=False,
+and with hop 384 (which does not divide n_fft) by default, the JAX driver
+dispatches to gl_fullrun4._kernel, the (m, 128)-layout whole-run kernel: the
+port's one Griffin-Lim kernel stands in for that dispatch too.
 
 Tolerances (float32 on both sides): x atol 5e-5 relative to its max, the
 band of the JAX package's own HIGHEST-vs-XLA check; the eval sums rtol 1e-5.
@@ -24,7 +27,7 @@ from specinv_tpu.models._pallas_driver import make_geometry4
 from specinv_tpu.models._pallas_driver import make_inv_env as j_make_inv_env
 from specinv_tpu.ops import stft as jst
 from specinv_tpu.ops.pallas import fft4
-from specinv_tpu.ops.pallas import gl_fullrun4
+from specinv_tpu.ops.pallas import fullrun_lane, gl_fullrun4
 from specinv_tpu_torch import convert
 from specinv_tpu_torch.config import canonicalize as tcanon
 from specinv_tpu_torch.models import _kernel_driver as kd
@@ -41,10 +44,10 @@ CASES = [
 ]
 
 
-def _setup(center, pad_mode):
+def _setup(center, pad_mode, hop=HOP):
     rng = np.random.default_rng(7)
     win = np.hanning(N_FFT + 1)[:-1].astype(np.float32)
-    kw = dict(window=win, hop_length=HOP, center=center, pad_mode=pad_mode)
+    kw = dict(window=win, hop_length=hop, center=center, pad_mode=pad_mode)
     jc, w = jcanon(N_FFT // 2 + 1, np.float32, **kw)
     tc, _ = tcanon(N_FFT // 2 + 1, np.float32, **kw)
     clips = rng.standard_normal((B, 7800 if center else 8300)).astype(np.float32)
@@ -67,12 +70,13 @@ def _setup(center, pad_mode):
     return jc, tc, w, T, geo, x0, pre_re, pre_im, tgt_p
 
 
-def _jax_run(jc, w, T, geo, x0, pre_re, pre_im, tgt_p, **flags):
+def _jax_run(jc, w, T, geo, x0, pre_re, pre_im, tgt_p, lane=None, **flags):
     inv_env = j_make_inv_env(jc, jnp.asarray(w), T, geo).astype(jnp.float32)
     return gl_fullrun4.fused_gl_run(
         jnp.asarray(x0), pre_re, pre_im, tgt_p, jnp.asarray(w), inv_env,
         jnp.float32(LR), jc, geo.e, n_iters=ITERS, block_t=geo.block_t,
-        interpret=True, precision=jax.lax.Precision.HIGHEST, emit_state=True, **flags)
+        interpret=True, precision=jax.lax.Precision.HIGHEST, emit_state=True,
+        lane=lane, **flags)
 
 
 def _port_inputs(tc, w, T, geo, x0, pre_re, pre_im, tgt_p):
@@ -89,10 +93,9 @@ def _close_plane(ours, ref):
     np.testing.assert_allclose(ours, ref, rtol=SUM_REL, atol=PLANE_ABS * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("center,pad_mode", CASES)
-def test_state_and_magnitude_match_jax(center, pad_mode):
-    jc, tc, w, T, geo, *state = _setup(center, pad_mode)
-    jx, jre, jim, jmag = _jax_run(jc, w, T, geo, *state, with_mag=True)
+def _check_state_and_magnitude(center, pad_mode, hop=HOP, lane=None):
+    jc, tc, w, T, geo, *state = _setup(center, pad_mode, hop)
+    jx, jre, jim, jmag = _jax_run(jc, w, T, geo, *state, lane=lane, with_mag=True)
     inputs = _port_inputs(tc, w, T, geo, *state)
     x, pre, mag = gl_fullrun.fused_gl_run(*inputs, LR, tc, ITERS, emit_state=True, with_mag=True)
     ref_x = np.asarray(jx)[:, : x.shape[-1]]
@@ -102,6 +105,25 @@ def test_state_and_magnitude_match_jax(center, pad_mode):
     _close_plane(pre.numpy().imag, ref_pre.imag)
     ref_mag = convert.from_permuted(np.asarray(jmag), N_FFT)[:, :T, : N_FFT // 2 + 1]
     _close_plane(mag.numpy(), ref_mag)
+
+
+@pytest.mark.parametrize("center,pad_mode", CASES)
+def test_state_and_magnitude_match_jax(center, pad_mode):
+    _check_state_and_magnitude(center, pad_mode)
+
+
+@pytest.mark.parametrize("center,pad_mode,hop,lane", [
+    (True, "reflect", 128, False),
+    (False, "reflect", 128, False),
+    (True, "circular", 384, None),
+    (True, "constant", 384, None),
+])
+def test_mlane_kernel_dispatch_matches_jax(center, pad_mode, hop, lane):
+    """The JAX dispatch to gl_fullrun4._kernel (lane=False, or hop 384 with
+    the default valve), held to the port's kernel module at the same bands."""
+    jc, _ = jcanon(N_FFT // 2 + 1, np.float32, hop_length=hop, center=center)
+    assert not fullrun_lane.supports(jc, lane)  # so fused_gl_run takes _kernel
+    _check_state_and_magnitude(center, pad_mode, hop, lane)
 
 
 @pytest.mark.parametrize("center,pad_mode", CASES)
