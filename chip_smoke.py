@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: Griffin-Lim
-(config 1) and ADMM (config 2).
+(config 1), ADMM (config 2) and RTISI-LA offline and streaming (config 3).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card, ``nvcc`` and no network, and fails (nonzero exit, no result line)
@@ -14,20 +14,28 @@ without them.  Phases, each of which raises on failure:
    (``csrc/admm_fullrun.cu``) at the main paths' shapes (n_fft 2048, hop
    512, 431 frames; 1 and 5 iterations) and, at a batch of 2 small clips, in
    every pad mode, with ``center=False``, with hops that do not divide n_fft,
-   ``normalized=True`` and ``onesided=False``;
+   ``normalized=True`` and ``onesided=False``; the RTISI-LA kernel
+   (``csrc/rtisi_fused.cu``) over one launch of 8 steps from a real
+   mid-clip state at config 3 (batch 1 and 16) and at small geometries
+   (batch 2), beside a float64 run of its plain version;
 4. the main paths, each on a 10 s speech-like clip (22.05 kHz, hann, n_fft
-   2048, hop 512), 100 iterations, tol 0, with the launch counts set to 0
-   just before and read just after, the final spectral convergence held
-   against the ``torch.fft`` path, then the same call with early stopping:
-   ``specinv_tpu_torch.griffin_lim``, then ``specinv_tpu_torch.ADMM``
-   (rho 0.1);
+   2048, hop 512), with the launch counts set to 0 just before and read
+   just after, and the final spectral convergence held against the
+   ``torch.fft`` path: ``specinv_tpu_torch.griffin_lim`` and then
+   ``specinv_tpu_torch.ADMM`` (rho 0.1), 100 iterations, tol 0, then the
+   same call with early stopping; ``specinv_tpu_torch.RTISI_LA`` (look-ahead
+   3, 25 refinements: 55 launches), then ``RTISIStreamer`` over the same
+   frames (434 launches, the offline path's committed frames bit for bit);
 5. marginal microseconds per iteration of the kernel and ``torch.fft``
-   paths of both, from CUDA events, by differencing 200 and 100
-   iterations, and each whole-run kernel against its plain version.
+   paths of GL and ADMM, from CUDA events, by differencing 200 and 100
+   iterations, and each whole-run kernel against its plain version; RTISI-LA
+   microseconds per output frame of both paths at batch 1 and 16 (a 10 s
+   against a 5 s clip), microseconds per streamer push, and the RTISI
+   kernel against its plain version per launch.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
-before it a JSON object with each kernel's launches, error and times; the
-last line is ``{"ok": true, "device": {...}}``.
+before it a JSON object with each kernel's launches, error, times and bound;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -79,6 +87,39 @@ ADMM_SC_BAND_DB = 0.6
 # CPU, so the ceiling allows 2 dB.
 ADMM_SC_CEILING_DB = -25.8
 ADMM_RHO = 0.1
+
+# RTISI-LA, BASELINE config 3: look-ahead 3, 25 refinements, alpha 0.99.
+RTISI_LA_FRAMES, RTISI_ITERS = 3, 25
+# RTISI kernel against its plain version, float32, relative to the plain
+# output's max, over one launch of 8 steps from a real state.  RTISI's
+# recursion roughly doubles a rounding difference per committed frame, and
+# the zero-phase start of every new frame under a hann window leaves bins
+# whose phase rounding decides, so both float32 sides drift far from a
+# float64 run of the plain version on the card (my chip run, NVIDIA H100
+# 80GB HBM3, 700 W), at config 3, batch 16: kernel committed frames 2.5e-2,
+# in flight 9.5e-2, momentum 9.7e-2; plain float32 (cuFFT) 3.3e-2, 1.7e-1,
+# 2.1e-1.  Each limit is twice the sum of the two sides, rounded up.
+RTISI_LIMITS = {"committed": 0.2, "keeped": 0.2, "update": 0.6, "pre": 0.7}
+# The small geometries (batch 2, from step 12) drift far less: at most
+# committed 8.4e-4 / 8.5e-4 (normalized), committed buffer 9.1e-4 / 9.2e-4
+# (normalized), in flight 3.4e-3 / 6.2e-3 and momentum 1.3e-2 / 1.3e-2
+# (4096/1024) for kernel / plain from float64 (my chip run, same card).
+# Twice the sum, rounded up.
+RTISI_SMALL_LIMITS = {"committed": 4e-3, "keeped": 4e-3, "update": 2e-2, "pre": 6e-2}
+# The first committed frame of the launch, one step deep: amplified least.
+RTISI_FIRST_LIMIT = 1e-2
+# Final SC (dB) of RTISI_LA's kernel path against its torch.fft path, and
+# the quality ceiling.  scripts/torch_profile.py runs config 3 on 16 clips:
+# the float64 fft path ended at -22.49 dB or below on each, and the float32
+# runs lay at most 0.28 dB (kernel) and 0.44 dB (fft) from it (same card).
+# The band is twice the sum, 1.5 dB; the ceiling the worst float64 SC plus
+# twice the larger drift, rounded up.
+RTISI_SC_BAND_DB = 1.5
+RTISI_SC_CEILING_DB = -21.5
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+# memory bandwidth and FP32 rate outside the tensor cores.
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 
 
 def smi_line() -> str:
@@ -158,6 +199,101 @@ def check_kernel(label, mod, run, scalar, cfg, state, n_iters, limits):
     return abs_err(x, rx)
 
 
+def bound(n_bytes: float, flops: float):
+    """The least time the card could take for work that moves ``n_bytes``
+    and does ``flops`` FP32 operations: ``(ms, "bytes" or "operations")``."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fft_flops(n: int) -> float:
+    """5 N log2 N per complex transform of N points."""
+    return 5.0 * n * (n.bit_length() - 1)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def event_ms(fn) -> float:
+    """Device milliseconds of one ``fn()`` (CUDA events, no warm-up)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def rtisi_state(n_fft, hop, n_samples, batch, dev, window="hann", look_ahead=-1,
+                asym=False, **stft_kwargs):
+    """RTISI-LA's starting state for ``batch`` speech-like clips: the padded
+    target ``(B, T + 2 la, F)``, the windows and ``(keeped, update, pre)``
+    with the zero-phase seed as the newest in-flight frame."""
+    import importlib
+
+    from specinv_tpu_torch.config import canonicalize
+    from specinv_tpu_torch.ops import stft as stft_ops
+    from specinv_tpu_torch.utils.corpus import make_speech_like
+
+    rt = importlib.import_module("specinv_tpu_torch.models.rtisi_la")
+    win_np = {"hann": np.hanning, "hamming": np.hamming, "ones": np.ones}[window](n_fft + 1)[:-1]
+    cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=win_np.astype(np.float32),
+                          hop_length=hop, **stft_kwargs)
+    clips = np.stack([make_speech_like(n_samples, seed=s) for s in range(batch)])
+    win = torch.from_numpy(w).to(dev)
+    mag = stft_ops.stft(torch.from_numpy(clips.astype(np.float32)).to(dev), cfg, win).abs()
+    num_keep = (n_fft - 1) // hop
+    la = num_keep if look_ahead < 0 else look_ahead
+    target = torch.nn.functional.pad(mag, (0, 0, la, la)).contiguous()
+    state = (torch.zeros(batch, num_keep, n_fft, device=dev), rt._seed_update(target, la, cfg),
+             torch.zeros(batch, la + 1, n_fft // 2 + 1, dtype=torch.complex64, device=dev))
+    return cfg, la, target, rt.rtisi_windows(win, cfg, asym), state
+
+
+def rtisi_advance(cfg, la, target, windows, state, steps, k=8):
+    """Run ``steps`` steps through the kernel, ``k`` per launch."""
+    from specinv_tpu_torch.ops.cuda import rtisi_fused
+
+    for i0 in range(0, steps, k):
+        n = min(k, steps - i0)
+        _, *state = rtisi_fused.fused_rtisi_steps(*state, target[:, i0 : i0 + n + la], windows,
+                                                  0.99 / 1.99, cfg, RTISI_ITERS)
+    return tuple(state)
+
+
+def check_rtisi(label, cfg, la, target, windows, state, i0, limits, k=8):
+    """One kernel launch of ``k`` steps from ``state`` against the plain
+    version (float32 on the card), with a float64 plain run beside them;
+    returns the max abs error of the committed frames."""
+    from specinv_tpu_torch.ops.cuda import rtisi_fused
+
+    lr = 0.99 / 1.99
+    tgt = target[:, i0 : i0 + k + la].contiguous()
+    ours = rtisi_fused.fused_rtisi_steps(*state, tgt, windows, lr, cfg, RTISI_ITERS)
+    ref = rtisi_fused.fused_rtisi_steps_reference(*state, tgt, windows, lr, cfg, RTISI_ITERS)
+    wide = [t.to(torch.complex128 if t.is_complex() else torch.float64) for t in (*state, tgt)]
+    w64 = type(windows)(*(w.double() for w in windows))
+    anchor = rtisi_fused.fused_rtisi_steps_reference(*wide[:3], wide[3], w64, lr, cfg, RTISI_ITERS)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+        return float((a.double() - b.double()).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    notes = []
+    for name, a, b, c in zip(limits, ours, ref, anchor):
+        if a.numel():
+            notes.append(f"{name} {err(a, b):.2e} (kernel/plain from float64 "
+                         f"{err(a, c):.2e}/{err(b, c):.2e})")
+    print(f"  rtisi {label}: " + "; ".join(notes), flush=True)
+    check(f"rtisi {label} first committed frame", err(ours[0][0], ref[0][0]), RTISI_FIRST_LIMIT)
+    for name, a, b in zip(limits, ours, ref):
+        if a.numel():
+            check(f"rtisi {label} {name}", err(a, b), limits[name])
+    return abs_err(ours[0], ref[0])
+
+
 def marginal_us(fn):
     """Marginal microseconds per iteration of ``fn(n_iters)``: CUDA-event
     medians of 3 runs at 200 and at 100 iterations, differenced."""
@@ -175,10 +311,14 @@ def main() -> None:
         raise SystemExit("chip_smoke: run it from the root of a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import specinv_tpu_torch as st
-    from specinv_tpu_torch.ops.cuda import _build, admm_fullrun, fft, gl_fullrun
+    from specinv_tpu_torch.ops.cuda import _build, admm_fullrun, fft, gl_fullrun, rtisi_fused
     from specinv_tpu_torch.utils.corpus import make_speech_like
 
-    counted = (gl_fullrun, admm_fullrun, fft)
+    counted = (gl_fullrun, admm_fullrun, fft, rtisi_fused)
+    t_start = time.perf_counter()
+
+    def since() -> str:
+        return f"(t = {time.perf_counter() - t_start:.1f} s)"
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -193,7 +333,8 @@ def main() -> None:
           f"{_build.last_build_seconds:.2f} s (build + load {time.perf_counter() - t0:.2f} s)",
           flush=True)
 
-    print("[3] kernels against their plain versions (float32, on the card)", flush=True)
+    print(f"[3] kernels against their plain versions (float32, on the card) {since()}",
+          flush=True)
     frames = torch.from_numpy(
         make_speech_like(431 * N_FFT, seed=3).astype(np.float32)).reshape(431, N_FFT).to(dev)
     spec_k, spec_r = fft.fft(frames), fft.fft_reference(frames)
@@ -228,6 +369,32 @@ def main() -> None:
         cfg, state = kernel_state(n_fft, hop, 7800, 2, dev, **extra)
         check_kernel(f"admm {n_fft}/{hop} {extra or 'defaults'}, 5 it", admm_fullrun,
                      "fused_admm_run", ADMM_RHO, cfg, state, 5, admm_limits)
+
+    print(f"[3] rtisi_fused.cu: one launch of 8 steps from a real state {since()}", flush=True)
+    rtisi_err, rtisi_mid = 0.0, {}
+    for batch in (1, 16):  # config 3, from step 100 of the clip
+        cfg3, la3, tgt3, win3, st3 = rtisi_state(N_FFT, HOP, N_SAMPLES, batch, dev)
+        if tgt3.shape != (batch, 431 + 2 * RTISI_LA_FRAMES, 1025):
+            raise AssertionError(f"config 3 target shape {tuple(tgt3.shape)}")
+        st3 = rtisi_advance(cfg3, la3, tgt3, win3, st3, 100)
+        rtisi_mid[batch] = (cfg3, la3, tgt3, win3, st3)
+        rtisi_err = max(rtisi_err, check_rtisi(f"config 3, B={batch}", cfg3, la3, tgt3, win3,
+                                               st3, 100, RTISI_LIMITS))
+    # Small geometries at batch 2 under a hamming window, from step 12 (step
+    # 0 where frames do not overlap: then only the first frame is seeded).
+    rtisi_small = [(512, 128, dict(pad_mode=m)) for m in ("reflect", "constant", "replicate",
+                                                          "circular")]
+    rtisi_small += [(512, 128, dict(center=False)), (512, 128, dict(asym=True)),
+                    (512, 128, dict(look_ahead=0)), (512, 512, dict(window="ones")),
+                    (512, 128, dict(normalized=True)), (512, 160, dict(asym=True)),
+                    (4096, 1024, dict(asym=True)), (256, 32, dict(look_ahead=7))]
+    for n_fft, hop, extra in rtisi_small:
+        extra = {"window": "hamming", **extra}
+        cfg, la, tgt, win, state = rtisi_state(n_fft, hop, max(7800, 8 * n_fft), 2, dev, **extra)
+        i0 = 0 if hop == n_fft else 12
+        state = rtisi_advance(cfg, la, tgt, win, state, i0)
+        rtisi_err = max(rtisi_err, check_rtisi(f"{n_fft}/{hop} {extra}", cfg, la, tgt, win,
+                                               state, i0, RTISI_SMALL_LIMITS))
 
     clip = torch.from_numpy(make_speech_like(N_SAMPLES, seed=0).astype(np.float32)).to(dev)
     window = torch.hann_window(N_FFT, device=dev)
@@ -270,7 +437,8 @@ def main() -> None:
             raise AssertionError(f"{name}: early-stopping run went wrong")
         return launches
 
-    print("[4] main path: griffin_lim, 10 s clip, n_fft 2048, hop 512, 100 iterations", flush=True)
+    print(f"[4] main path: griffin_lim, 10 s clip, n_fft 2048, hop 512, 100 iterations "
+          f"{since()}", flush=True)
     gl_launches = drive("griffin_lim", st.griffin_lim, gl_fullrun, SC_BAND_DB, SC_CEILING_DB)
 
     def admm(spec, **k):
@@ -280,7 +448,69 @@ def main() -> None:
           flush=True)
     admm_launches = drive("ADMM", admm, admm_fullrun, ADMM_SC_BAND_DB, ADMM_SC_CEILING_DB)
 
-    print("[5] marginal time per iteration (CUDA events, 200 - 100 iterations)", flush=True)
+    import importlib
+
+    rt = importlib.import_module("specinv_tpu_torch.models.rtisi_la")
+    rtisi_kw = dict(look_ahead=RTISI_LA_FRAMES, max_iter=RTISI_ITERS, **kw)
+    rtisi_expected = -(-(431 + RTISI_LA_FRAMES) // 8)
+    print(f"[4] main path: RTISI_LA, look-ahead {RTISI_LA_FRAMES}, {RTISI_ITERS} refinements, "
+          f"10 s clip, n_fft 2048, hop 512 {since()}", flush=True)
+    recorded, synthesize = {}, rt.synthesize
+
+    def record(frames, *args):  # the committed frames the offline call synthesizes
+        recorded["frames"] = frames
+        return synthesize(frames, *args)
+
+    for counted_mod in counted:
+        counted_mod.launches = 0
+    rt.synthesize = record
+    try:
+        y = st.RTISI_LA(mag, **rtisi_kw)
+        torch.cuda.synchronize()
+    finally:
+        rt.synthesize = synthesize
+    rtisi_launches = rtisi_fused.launches
+    if y.shape != (expected_len,) or y.device != clip.device or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"RTISI_LA: bad output {tuple(y.shape)} on {y.device}")
+    if rtisi_launches != rtisi_expected:
+        raise AssertionError(f"RTISI_LA: {rtisi_launches} launches, expected {rtisi_expected}")
+    sc_k, sc_f = sc_db(y), sc_db(st.RTISI_LA(mag, backend="fft", **rtisi_kw))
+    print(f"  kernel launches {rtisi_launches} (expected {rtisi_expected}); output "
+          f"{tuple(y.shape)} finite", flush=True)
+    print(f"  SC: kernel {sc_k:.4f} dB, fft {sc_f:.4f} dB, diff {abs(sc_k - sc_f):.4f} dB "
+          f"(band {RTISI_SC_BAND_DB}, ceiling {RTISI_SC_CEILING_DB})", flush=True)
+    if not abs(sc_k - sc_f) <= RTISI_SC_BAND_DB:
+        raise AssertionError("RTISI_LA: kernel and fft paths disagree on SC")
+    if not sc_k < RTISI_SC_CEILING_DB:
+        raise AssertionError(f"RTISI_LA: SC {sc_k:.2f} dB is not below {RTISI_SC_CEILING_DB} dB")
+
+    class RecordingStreamer(st.RTISIStreamer):
+        def _emit(self, committed):
+            self.committed.append(committed)
+            return super()._emit(committed)
+
+    print(f"[4] main path: RTISIStreamer over the same 431 frames, then flush {since()}",
+          flush=True)
+    for counted_mod in counted:
+        counted_mod.launches = 0
+    streamer = RecordingStreamer(N_FFT // 2 + 1, look_ahead=RTISI_LA_FRAMES,
+                                 max_iter=RTISI_ITERS, hop_length=HOP, window=window)
+    streamer.committed = []
+    chunks = [streamer.push(mag[:, t]) for t in range(mag.shape[1])]
+    chunks = [c for c in chunks if c is not None] + [streamer.flush()]
+    torch.cuda.synchronize()
+    stream_launches = rtisi_fused.launches
+    streamed = torch.cat(chunks, dim=1)
+    print(f"  kernel launches {stream_launches} (expected {431 + RTISI_LA_FRAMES}); "
+          f"{streamed.shape[1]} samples", flush=True)
+    if stream_launches != 431 + RTISI_LA_FRAMES or not bool(torch.isfinite(streamed).all()):
+        raise AssertionError("RTISIStreamer: wrong launch count or non-finite samples")
+    if not torch.equal(torch.stack(streamer.committed), recorded["frames"]):
+        raise AssertionError("RTISIStreamer: committed frames differ from the offline path's")
+    print("  committed frames equal the offline kernel path's, bit for bit", flush=True)
+
+    print(f"[5] marginal time per iteration (CUDA events, 200 - 100 iterations) {since()}",
+          flush=True)
     paths = (("griffin_lim", st.griffin_lim), ("ADMM", admm))
     us = {}
     for backend in ("fft", "kernel", "kernel", "fft"):  # both algorithms in each turn
@@ -308,23 +538,100 @@ def main() -> None:
           f"{admm_plain_ms * 1000:.2f}; fft.cuh fwd+inv {fft_ms * 1000:.2f} us vs torch.fft "
           f"{fft_plain_ms * 1000:.2f} on {smi}", flush=True)
 
+    print(f"[5] RTISI-LA per output frame: 10 s against 5 s clip, median of 3 {since()}",
+          flush=True)
+    half = N_SAMPLES // 2
+    clips16 = torch.from_numpy(np.stack([make_speech_like(N_SAMPLES, seed=s)
+                                         for s in range(16)]).astype(np.float32)).to(dev)
+    mags = {}
+    for batch, x in ((1, clip[None]), (16, clips16)):
+        mags[batch] = [st.stft(x[:, :n], N_FFT, hop_length=HOP, window=window).abs()
+                       for n in (N_SAMPLES, half)]
+    steps = [m.shape[-1] + RTISI_LA_FRAMES for m in mags[1]]
+    t_run = {}
+    for _ in range(3):
+        for backend in ("fft", "kernel"):
+            for batch in (1, 16):
+                for i, m in enumerate(mags[batch]):
+                    t_run.setdefault((backend, batch, i), []).append(event_ms(
+                        lambda: st.RTISI_LA(m, backend=backend, **rtisi_kw)))
+    rtisi_rates = {}
+    for backend in ("kernel", "fft"):
+        for batch in (1, 16):
+            t10, t5 = (float(np.median(t_run[(backend, batch, i)])) for i in (0, 1))
+            us_frame = (t10 - t5) / (steps[0] - steps[1]) * 1000
+            rtisi_rates[(backend, batch)] = us_frame
+            print(f"  {backend} path, B={batch}: {us_frame:.2f} us per output frame step, "
+                  f"{batch * 1e6 / us_frame:.1f} frames/s (10 s call {t10:.1f} ms, 5 s call "
+                  f"{t5:.1f} ms) on {smi}", flush=True)
+
+    for batch in (1, 16):
+        s16 = st.RTISIStreamer(N_FFT // 2 + 1, look_ahead=RTISI_LA_FRAMES, max_iter=RTISI_ITERS,
+                               batch=batch, hop_length=HOP, window=window)
+        frames_in = mags[batch][0]
+        for t in range(RTISI_LA_FRAMES + 2):  # warm-up and the look-ahead fill
+            s16.push(frames_in[..., t])
+        n_push = 64
+        push_ms = event_ms(lambda: [s16.push(frames_in[..., 10 + t]) for t in range(n_push)])
+        print(f"  streamer, B={batch}: {push_ms / n_push * 1000:.2f} us per push "
+              f"({batch * n_push / push_ms * 1000:.1f} frames/s) on {smi}", flush=True)
+
+    cfg3, la3, tgt3, win3, st3 = rtisi_mid[1]
+    tgt8 = tgt3[:, 100 : 108 + la3].contiguous()
+    rtisi_ms = time_ms(lambda: rtisi_fused.fused_rtisi_steps(*st3, tgt8, win3, lr, cfg3,
+                                                             RTISI_ITERS), 10)
+    rtisi_plain_ms = time_ms(lambda: rtisi_fused.fused_rtisi_steps_reference(
+        *st3, tgt8, win3, lr, cfg3, RTISI_ITERS), 2)
+    print(f"  rtisi_fused.cu, one launch of 8 steps at config 3, B=1: {rtisi_ms * 1000:.1f} us "
+          f"vs plain {rtisi_plain_ms * 1000:.1f} us on {smi} {since()}", flush=True)
+
+    # Bounds: the bytes each function must move (inputs read once, outputs
+    # written once) over the memory rate, or its FP32 operations over the
+    # FP32 rate, whichever is larger.  GL and ADMM: one iteration of the
+    # 100-iteration call that was timed, so the call's bytes count 1/100.
+    T1, F1, lp1 = tgt.shape[-2], tgt.shape[-1], x_pad.shape[-1]
+    call_bytes = nbytes(x_pad, seed, tgt, win, inv_env, fft.twiddles(N_FFT, dev)) + nbytes(x_pad, seed)
+    it_flops = T1 * (2 * fft_flops(N_FFT) + 2 * N_FFT) + lp1 * (-(-N_FFT // HOP) + 1)
+    gl_bound = bound(call_bytes / 100, it_flops + T1 * F1 * 12)   # momentum + projection
+    admm_bound = bound(call_bytes / 100, it_flops + T1 * F1 * 20)  # the DR update
+    fft_bound = bound(2 * nbytes(frames) + 2 * nbytes(spec_k), 2 * frames.shape[0] * fft_flops(N_FFT))
+    k8, R3, nk3 = 8, la3 + 1, st3[0].shape[1]
+    rtisi_out = rtisi_fused.fused_rtisi_steps(*st3, tgt8, win3, lr, cfg3, RTISI_ITERS)
+    rtisi_bound = bound(
+        nbytes(*st3, tgt8, *win3, fft.twiddles(N_FFT, dev)) + nbytes(*rtisi_out),
+        k8 * (RTISI_ITERS * R3 * (2 * fft_flops(N_FFT) + 14 * (N_FFT // 2 + 1) + 4 * N_FFT)
+              + 2 * nk3 * N_FFT))
+    print(f"  bounds (ms): gl {gl_bound}, admm {admm_bound}, fft {fft_bound}, rtisi {rtisi_bound}",
+          flush=True)
+
+    def timing(ms, plain_ms, bnd, library_ms=None):
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     kernels = [
         {"name": "gl_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='gl'); "
                      "specinv_tpu/ops/pallas/gl_fullrun4.py:223",
-         "launches": gl_launches, "max_abs_err": gl_err, "ms": gl_ms, "plain_ms": gl_plain_ms},
+         "launches": gl_launches, "max_abs_err": gl_err, **timing(gl_ms, gl_plain_ms, gl_bound)},
         {"name": "admm_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='admm'); "
                      "specinv_tpu/ops/pallas/admm_fused4.py:275",
-         "launches": admm_launches, "max_abs_err": admm_err, "ms": admm_ms,
-         "plain_ms": admm_plain_ms},
-        # fft.cuh runs inside the frame kernel of every gl_fullrun and
-        # admm_fullrun launch
+         "launches": admm_launches, "max_abs_err": admm_err,
+         **timing(admm_ms, admm_plain_ms, admm_bound)},
+        # fft.cuh runs inside every gl_fullrun, admm_fullrun and rtisi_fused
+        # launch; its library call is torch.fft.rfft + irfft
         {"name": "fft", "route": "cuda", "source": "specinv_tpu_torch/csrc/fft.cuh",
          "replaces": "specinv_tpu/ops/pallas/fft4.py:322",
-         "launches": gl_launches + admm_launches, "max_abs_err": fft_err, "ms": fft_ms,
-         "plain_ms": fft_plain_ms},
+         "launches": gl_launches + admm_launches + rtisi_launches + stream_launches,
+         "max_abs_err": fft_err, **timing(fft_ms, fft_plain_ms, fft_bound, fft_plain_ms)},
+        # launches: RTISI_LA's and then the streamer's, on the main path
+        {"name": "rtisi_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/rtisi_fused.cu",
+         "replaces": "specinv_tpu/ops/pallas/rtisi_fused4.py:274; "
+                     "specinv_tpu/ops/pallas/rtisi_fused4.py:61",
+         "launches": rtisi_launches + stream_launches, "max_abs_err": rtisi_err,
+         **timing(rtisi_ms, rtisi_plain_ms, rtisi_bound)},
     ]
+    print(f"  done {since()}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

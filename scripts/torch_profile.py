@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where the time goes in specinv_tpu_torch's main paths on one CUDA card,
+and how far float32 RTISI-LA runs lie from a float64 one.
+
+Run from the root of a checkout: ``python3 scripts/torch_profile.py``
+(one card, nvcc; about two minutes on an H100).  It fails without a card.
+
+1. ``torch.profiler`` over one call of each path, after a warm-up call:
+   griffin_lim and ADMM (BASELINE configs 1 and 2: a 10 s speech-like clip,
+   n_fft 2048, hop 512, 50 iterations, tol 0) and RTISI_LA (config 3:
+   look-ahead 3, 25 refinements, a 2 s clip at batch 1 and 16), each
+   through the kernel and the ``torch.fft`` path.  Per unit of work (an
+   iteration, or an output-frame step) it prints the device kernels and the
+   device time, then the call's wall time, the device's idle share of it
+   (1 - the union of kernel intervals over the wall time) and the top
+   kernels by device time.
+2. RTISI_LA at config 3 on 16 speech-like 10 s clips through the kernel
+   path, the ``torch.fft`` path in float32 and the ``torch.fft`` path in
+   float64: the final SC (dB) of each clip, each float32 path's largest
+   distance from float64 and the worst SC.  chip_smoke.py's RTISI SC band
+   and ceiling rest on these.
+"""
+from __future__ import annotations
+
+import collections
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+N_FFT, HOP, SR = 2048, 512, 22050
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_call(label: str, fn, units: int, unit: str) -> None:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    device_us = sum(by_name.values())
+    idle = 1.0 - busy_us((e.time_range.start, e.time_range.end) for e in kernels) / wall_us
+    top = ", ".join(f"{name[:40]} {t / units:.2f} us" for name, t in by_name.most_common(3))
+    print(f"  {label}: {len(kernels) / units:.1f} device kernels / {unit}, device time "
+          f"{device_us / units:.2f} us / {unit}; call {wall_us / 1e3:.1f} ms, idle share "
+          f"{100 * idle:.1f} %; top: {top}", flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile: torch.cuda.is_available() is False")
+    sys.path.insert(0, str(ROOT))
+    import specinv_tpu_torch as st
+    from specinv_tpu_torch.utils.corpus import make_speech_like
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__}",
+          flush=True)
+    dev = torch.device("cuda", 0)
+    window = torch.hann_window(N_FFT, device=dev)
+    kw = dict(hop_length=HOP, window=window, verbose=False)
+
+    def mags(batch, seconds):
+        clips = np.stack([make_speech_like(int(SR * seconds), seed=s) for s in range(batch)])
+        x = torch.from_numpy(clips.astype(np.float32)).to(dev)
+        return st.stft(x, N_FFT, hop_length=HOP, window=window).abs()
+
+    print("[1] torch.profiler, one call after a warm-up", flush=True)
+    mag10 = mags(1, 10.0)[0]
+    for name, fn in (("griffin_lim", st.griffin_lim),
+                     ("ADMM", lambda m, **k: st.ADMM(m, rho=0.1, **k))):
+        for backend in ("kernel", "fft"):
+            profile_call(f"{name} {backend}, config {1 if name == 'griffin_lim' else 2}",
+                         lambda: fn(mag10, max_iter=50, tol=0.0, backend=backend, **kw), 50,
+                         "iteration")
+    rtisi_kw = dict(look_ahead=3, max_iter=25, **kw)
+    for batch in (1, 16):
+        mag2 = mags(batch, 2.0)
+        steps = mag2.shape[-1] + 3
+        for backend in ("kernel", "fft"):
+            profile_call(f"RTISI_LA {backend}, config 3, B={batch}",
+                         lambda: st.RTISI_LA(mag2, backend=backend, **rtisi_kw), steps,
+                         "frame step")
+
+    print("[2] RTISI_LA SC at config 3, 16 clips of 10 s: float32 paths against float64",
+          flush=True)
+    mag16 = mags(16, 10.0)
+    runs = {"kernel": (mag16, window, "kernel"), "fft32": (mag16, window, "fft"),
+            "fft64": (mag16.double(), window.double(), "fft")}
+    sc = {}
+    for name, (m, w, backend) in runs.items():
+        y = st.RTISI_LA(m, backend=backend, look_ahead=3, max_iter=25, hop_length=HOP, window=w,
+                        verbose=False)
+        sc[name] = np.array([float(st.sc(st.stft(y[b], N_FFT, hop_length=HOP, window=w).abs(),
+                                         m[b])) for b in range(16)])
+        print(f"  {name}: SC {np.array2string(sc[name], precision=4)} dB", flush=True)
+    for name in ("kernel", "fft32"):
+        print(f"  {name}: max |SC - SC(fft64)| {np.abs(sc[name] - sc['fft64']).max():.4f} dB, "
+              f"worst SC {sc[name].max():.4f} dB", flush=True)
+    print(f"  fft64: worst SC {sc['fft64'].max():.4f} dB; on {smi}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,14 +5,18 @@ hand-written CUDA kernels for an NVIDIA H100.  This package imports neither
 JAX nor ``specinv_tpu``; it exports what has been ported so far: the
 Griffin-Lim main path (SPSI phase seed, the whole-run Griffin-Lim kernel and
 its ``torch.fft`` counterpart), ADMM (the whole-run ADMM kernel and the
-literal ``torch.fft`` chain), the STFT pair and the metrics.
+literal ``torch.fft`` chain), RTISI-LA offline and streaming (the multi-step
+RTISI kernel and the literal ``torch.fft`` step), the STFT pair and the
+metrics.
 """
 name = "specinv_tpu_torch"
 __version__ = "0.1.0"
 
 from .config import STFTConfig, canonicalize  # noqa: F401
 from .metrics import sc, ser, snr, spectral_convergence  # noqa: F401
-from .models import ADMM, admm, griffin_lim, phase_init  # noqa: F401
+from .models import (  # noqa: F401
+    ADMM, RTISI_LA, RTISIStreamer, admm, griffin_lim, phase_init, rtisi_la,
+)
 from .transforms import istft, stft  # noqa: F401
 
 __all__ = [
@@ -20,6 +24,9 @@ __all__ = [
     "ADMM",
     "admm",
     "phase_init",
+    "RTISI_LA",
+    "rtisi_la",
+    "RTISIStreamer",
     "sc",
     "snr",
     "ser",

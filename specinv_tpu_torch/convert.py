@@ -52,3 +52,22 @@ def state_from_jax(x_pad, pre_re_perm, pre_im_perm, target_perm, n_fft: int, T: 
         hop = (x.shape[-1] - n_fft) // (t_pad - 1)
         x = x[..., : (T - 1) * hop + n_fft]
     return x, pre.astype(np.complex64), plane(target_perm)
+
+
+def rtisi_state_from_jax(state):
+    """A JAX ``RTISIState`` -> ``(keeped, update, pre_spec)`` in the port's
+    layout (numpy arrays).
+
+    The XLA path's state carries over as it is (``pre_spec (B, la+1, F)``
+    complex).  The kernel-mode streamer's state carries the momentum as a
+    pair of batch-major permuted planes ``(B, la+1, m, 128)``; they become
+    the onesided complex spectrum in natural bin order, and the mirror bins
+    above ``n_fft // 2`` are dropped.
+    """
+    keeped, update, pre = state
+    keeped, update = np.asarray(keeped), np.asarray(update)
+    if isinstance(pre, tuple):
+        n_fft = update.shape[-1]
+        re, im = (from_permuted(p, n_fft)[..., : n_fft // 2 + 1] for p in pre)
+        pre = (re + 1j * im).astype(np.complex64)
+    return keeped, update, np.asarray(pre)

@@ -49,33 +49,37 @@ __device__ __forceinline__ int bit_reverse(int i, int log2n) {
   return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - log2n));
 }
 
-// In-place bit-reversal permutation of s[0, n), n = 2^log2n.  Ends with a
-// barrier.
-__device__ inline void bitrev_permute(float2* s, int n, int log2n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+// In-place bit-reversal permutation of each of the `frames` frames of n =
+// 2^log2n points held back to back in s.  Ends with a barrier.
+__device__ inline void bitrev_permute(float2* s, int n, int log2n, int frames = 1) {
+  for (int q = threadIdx.x; q < frames * n; q += blockDim.x) {
+    const int i = q & (n - 1);
     const int r = bit_reverse(i, log2n);
     if (i < r) {
-      const float2 t = s[i];
-      s[i] = s[r];
-      s[r] = t;
+      float2* f = s + (q - i);
+      const float2 t = f[i];
+      f[i] = f[r];
+      f[r] = t;
     }
   }
   __syncthreads();
 }
 
 // Radix-2 decimation-in-time stages: bit-reversed input in s -> natural-
-// order DFT in s (unscaled).  INVERSE uses conj(tw).  Expects a barrier
-// before the call; ends with one.
+// order DFT in s (unscaled), for each of `frames` frames of n points held
+// back to back (the block's threads share the butterflies of all of them).
+// INVERSE uses conj(tw).  Expects a barrier before the call; ends with one.
 template <bool INVERSE>
 __device__ inline void fft_stages(float2* s, const float2* __restrict__ tw,
-                                  int n, int log2n) {
+                                  int n, int log2n, int frames = 1) {
   const int half = n >> 1;
   for (int st = 0; st < log2n; ++st) {
     const int h = 1 << st;            // butterfly half-span at this stage
     const int stride = half >> st;    // twiddle stride N / (2h)
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
+    for (int q = threadIdx.x; q < frames * half; q += blockDim.x) {
+      const int j = q & (half - 1);   // butterfly within its frame
       const int pos = j & (h - 1);
-      const int i0 = ((j >> st) << (st + 1)) + pos;
+      const int i0 = (q - j) * 2 + ((j >> st) << (st + 1)) + pos;
       const int i1 = i0 + h;
       const float2 w = __ldg(tw + pos * stride);
       const float2 b = INVERSE ? cmul_conj(s[i1], w) : cmul(s[i1], w);
@@ -105,11 +109,12 @@ __device__ inline void forward_real(float2* s, const float* __restrict__ src,
 // s holds a natural-order spectrum (the full Hermitian spectrum for a
 // onesided caller, which writes bin n-k beside bin k).  Permute and run the
 // inverse stages: the real part of s is the unscaled inverse DFT on return.
+// With `frames` > 1, s holds that many such spectra back to back.
 __device__ inline void inverse_inplace(float2* s, const float2* __restrict__ tw,
-                                       int n, int log2n) {
+                                       int n, int log2n, int frames = 1) {
   __syncthreads();
-  bitrev_permute(s, n, log2n);
-  fft_stages<true>(s, tw, n, log2n);
+  bitrev_permute(s, n, log2n, frames);
+  fft_stages<true>(s, tw, n, log2n, frames);
 }
 
 }  // namespace specinv

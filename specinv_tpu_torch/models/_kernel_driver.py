@@ -12,12 +12,20 @@ The port keeps no padded frame rows: the buffer is exactly
 onesided complex, in natural bin order.  The JAX package's time-block sizing
 (``auto_block_t``, ``resolve_block_t``) sizes TPU VMEM tiles and has no
 counterpart.
+
+The RTISI-LA twins (:func:`rtisi_twin`, :func:`rtisi_steps_twin`) keep the
+plain path's state layout, the JAX XLA path's ``RTISIState``: committed
+frames ``(B, num_keep, n_fft)``, in-flight frames ``(B, la+1, n_fft)`` and
+momentum ``(B, la+1, F)`` complex, onesided in natural bin order.  The
+kernel takes the same layout, so neither the JAX kernel's permuted momentum
+planes nor its streamer's second state layout have a counterpart.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import STFTConfig
 from ..ops import fourier
@@ -118,6 +126,75 @@ def admm_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedG
     fr = fourier.inverse(y_new, cfg) * window
     y = overlap_add(fr, cfg.hop_length) * inv_env
     return (repad_edges(y, cfg, geo), y_new), mag
+
+
+class RTISIWindows(NamedTuple):
+    window: torch.Tensor  # analysis window of every in-flight frame but the newest
+    first: torch.Tensor   # the newest frame's analysis window on refinement 0
+    rest: torch.Tensor    # the newest frame's analysis window on later refinements
+    synth: torch.Tensor   # window * hop / sum(window^2): the OLA synthesis window
+
+
+def rtisi_tail(keeped: torch.Tensor, synth: torch.Tensor, hop: int, length: int) -> torch.Tensor:
+    """The committed frames' synthesis OLA with the committed prefix dropped,
+    zero-padded to ``length`` samples: ``(B, length)``."""
+    B, num_keep, _ = keeped.shape
+    if num_keep == 0:
+        return keeped.new_zeros((B, length))
+    tail = overlap_add(keeped * synth, hop)[..., num_keep * hop :]
+    return F.pad(tail, (0, length - tail.shape[-1]))
+
+
+def rtisi_twin(x_keep, update, pre, target, windows: RTISIWindows, lr, cfg: STFTConfig,
+               max_iter: int):
+    """All ``max_iter`` refinements of one RTISI-LA step in plain PyTorch,
+    the counterpart of the JAX ``rtisi_xla_twin4``.
+
+    ``x_keep (B, L)`` is the committed tail (:func:`rtisi_tail`), ``update
+    (B, R, n_fft)``, ``pre (B, R, F)`` complex and ``target (B, R, F)``,
+    ``R = la + 1``; returns ``(update, pre)``.  Refinement 0 takes the next
+    frame's momentum (the newest frame none) and the newest frame's
+    ``windows.first``; later ones ``windows.rest``.
+    """
+    n, hop = cfg.n_fft, cfg.hop_length
+    R = update.shape[-2]
+    for j in range(max_iter):
+        xs = x_keep + overlap_add(update * windows.synth, hop)
+        last = windows.first if j == 0 else windows.rest
+        rows = torch.cat([windows.window.expand(R - 1, n), last[None]], dim=0)
+        s = fourier.forward(frame(xs, n, hop) * rows, cfg)
+        if j == 0:
+            pre = torch.cat([pre[:, 1:], torch.zeros_like(pre[:, :1])], dim=1)
+        s = s - lr * pre
+        pre = s
+        update = fourier.inverse(s * (target / (s.abs() + PROJ_EPS)), cfg)
+    return update, pre
+
+
+def rtisi_steps_twin(keeped, update, pre, target, windows: RTISIWindows, lr,
+                     cfg: STFTConfig, max_iter: int):
+    """``k`` chained RTISI-LA steps in plain PyTorch, the counterpart of the
+    JAX ``rtisi_la._multi_twin``: per step the committed tail, the
+    refinements (:func:`rtisi_twin`), then commit and slide.
+
+    ``target (B, k + la, F)`` is the window of magnitude frames: step ``s``
+    refines against rows ``s .. s + la``.  Returns ``(committed (k, B,
+    n_fft), keeped, update, pre)``.  This is the plain version of the CUDA
+    kernel (its CPU path and its check on the card) and, under autograd,
+    its backward.
+    """
+    R = update.shape[-2]
+    length = (R - 1) * cfg.hop_length + cfg.n_fft
+    committed = []
+    for step in range(target.shape[-2] - R + 1):
+        x_keep = rtisi_tail(keeped, windows.synth, cfg.hop_length, length)
+        update, pre = rtisi_twin(x_keep, update, pre, target[:, step : step + R], windows,
+                                 lr, cfg, max_iter)
+        committed.append(update[:, 0])
+        if keeped.shape[1]:
+            keeped = torch.cat([keeped[:, 1:], update[:, :1]], dim=1)
+        update = torch.cat([update[:, 1:], torch.zeros_like(update[:, :1])], dim=1)
+    return torch.stack(committed), keeped, update, pre
 
 
 def run_kernel_loop(run, state0, target, geo: PaddedGeometry, max_iter: int, tol,

@@ -9,17 +9,10 @@ from __future__ import annotations
 
 from typing import Any, Tuple
 
-import numpy as np
 import torch
 
 from ..config import STFTConfig, canonicalize
-from ..transforms import _real_dtype, numpy_dtype, window_tensor
-
-
-def as_tensor(x: Any) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x))
+from ..transforms import _real_dtype, as_tensor, numpy_dtype, window_tensor
 
 
 def prepare_spec_b3(

@@ -46,6 +46,13 @@ _SIGNATURES = {
         _F, _F, _F, _I,                           # rho fscale iscale valid_t
         _P,                                       # stream
     ],
+    "specinv_rtisi_steps": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,       # keep upd pre target window awf awr synth tw
+        _P, _P, _P,                               # com xk xs
+        _I, _I, _I, _I, _I, _I, _I, _I,           # B k R nk n log2n hop max_iter
+        _F, _F, _F,                               # lr fscale iscale
+        _P,                                       # stream
+    ],
 }
 
 # Seconds the last nvcc run of this process took (0.0 until one ran);

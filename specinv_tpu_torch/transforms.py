@@ -17,6 +17,27 @@ from .config import as_numpy_window, canonicalize
 from .ops import stft as stft_ops
 
 
+def default_device() -> torch.device:
+    """Where an input that is not a tensor goes: the CUDA card.
+
+    A CPU tensor is the caller's way to ask for the CPU; without a card an
+    array raises rather than run there unasked.
+    """
+    if not torch.cuda.is_available():
+        raise ValueError(
+            "no CUDA card: an array input runs on the card; pass a CPU tensor "
+            "(torch.from_numpy) to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor as it is; anything else as a tensor on :func:`default_device`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=default_device())
+
+
 def _real_dtype(dtype: torch.dtype) -> torch.dtype:
     """Working real type: the real part of a complex type, float32 for
     16-bit floats and non-float input."""
@@ -41,8 +62,10 @@ def window_tensor(window_np: np.ndarray, device, real_dtype: torch.dtype) -> tor
 
 
 def stft(x, n_fft: int, backend: str = "auto", **stft_kwargs):
-    """Complex STFT of ``x`` (..., L) -> (..., F, T), torch.stft semantics."""
-    x = torch.as_tensor(x)
+    """Complex STFT of ``x`` (..., L) -> (..., F, T), torch.stft semantics.
+
+    ``x`` is a tensor on any device, or an array, which goes to the card."""
+    x = as_tensor(x)
     window = stft_kwargs.get("window")
     complex_in = x.is_complex() or (
         window is not None and np.iscomplexobj(as_numpy_window(window))
@@ -77,9 +100,10 @@ def istft(spec, length: Optional[int] = None, backend: str = "auto", **stft_kwar
     """Inverse STFT of complex ``spec`` (..., F, T) -> (..., L_out).
 
     ``n_fft`` is inferred from the bin count like the inversion entry points;
-    ``length`` crops or zero-pads to an exact sample count.
+    ``length`` crops or zero-pads to an exact sample count.  ``spec`` is a
+    tensor on any device, or an array, which goes to the card.
     """
-    spec = torch.as_tensor(spec)
+    spec = as_tensor(spec)
     if not spec.is_complex():
         raise TypeError(
             "istft needs a complex spectrogram; got a real array — invert "

@@ -72,6 +72,13 @@ def stats_eval_fns(metric: str, target: torch.Tensor):
     return loss_fn, metric_fn
 
 
+def gate_verbose(verbose) -> bool:
+    """Counterpart of the JAX ``gate_verbose``, which turns progress off on
+    backends without host callbacks.  The port's loops run on the host, so
+    progress can always be reported: ``bool(verbose)``."""
+    return bool(verbose)
+
+
 def _progress_print(i, metric_name, metric_val, loss):
     print(f"iter {int(i) + 1}: {metric_name}={float(metric_val):.4f} loss={float(loss):.3e}")
 
@@ -100,11 +107,12 @@ class _StopRule:
         self.prev, self.init, self.done = l2, init, self.done | stop
 
 
-def _checkpointed(fn):
+def checkpointed(fn):
+    """``fn`` recomputed in the backward pass (``torch.utils.checkpoint``)."""
     from torch.utils.checkpoint import checkpoint
 
-    def run(state):
-        return checkpoint(fn, state, use_reentrant=False)
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
 
     return run
 
@@ -141,7 +149,7 @@ def iterate(
     if loss_fn is None:
         loss_fn = _mse
     if remat:
-        step_fn = _checkpointed(step_fn)
+        step_fn = checkpointed(step_fn)
 
     no_eval = not verbose and (
         not early_stop or (isinstance(tol, (int, float)) and tol == 0)
@@ -199,9 +207,9 @@ def iterate_segmented(
     if loss_fn is None:
         loss_fn = _mse
     if remat:
-        seg_fn = _checkpointed(seg_fn)
+        seg_fn = checkpointed(seg_fn)
         if tail_fn is not None:
-            tail_fn = _checkpointed(tail_fn)
+            tail_fn = checkpointed(tail_fn)
 
     rule = _StopRule(tol, _real_part(target))
     for k in range(max_iter // eva_iter):

@@ -10,17 +10,22 @@ machine with an NVIDIA GPU and nvcc, from the root of a checkout:
 GPU machine do without.)  chip_smoke.py runs the same kernels at the main
 paths' shapes.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+import specinv_tpu_torch as st
 from specinv_tpu_torch.config import canonicalize
 from specinv_tpu_torch.models import _kernel_driver as kd
 from specinv_tpu_torch.models.phase_init import phase_init_tm
 from specinv_tpu_torch.ops import stft as stft_ops
-from specinv_tpu_torch.ops.cuda import admm_fullrun, gl_fullrun
+from specinv_tpu_torch.ops.cuda import admm_fullrun, gl_fullrun, rtisi_fused
 from specinv_tpu_torch.ops.framing import pad_center
 from specinv_tpu_torch.utils.corpus import make_speech_like
+
+rtisi_la = importlib.import_module("specinv_tpu_torch.models.rtisi_la")
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +85,65 @@ def test_kernel_matches_plain_version(dev, name):
     torch.cuda.synchronize()
     assert mod.launches - before == 5
     assert float((x - ref).abs().max() / ref.abs().max()) <= x_limit
+
+
+def _rtisi_input(dev, batch, seconds):
+    """BASELINE config 3's widths (n_fft 2048, hop 512, hann, look-ahead 3,
+    25 refinements) on ``batch`` speech-like clips: ``(mag (B, F, T), kw)``."""
+    clips = np.stack([make_speech_like(int(22050 * seconds), seed=s) for s in range(batch)])
+    window = torch.hann_window(2048, device=dev)
+    mag = st.stft(torch.from_numpy(clips.astype(np.float32)).to(dev), 2048, hop_length=512,
+                  window=window).abs()
+    return mag, dict(look_ahead=3, max_iter=25, hop_length=512, window=window)
+
+
+def test_rtisi_frames_per_launch_and_streamer_are_bitwise(dev, monkeypatch):
+    """frames_per_launch 1, 3 and 8 and the streamer (one launch of one step
+    per push) commit the same frames bit for bit: a step computes the same
+    whether it is the first of a launch or a later one."""
+    mag, kw = _rtisi_input(dev, 1, 3.0)
+    T = mag.shape[-1]
+    recorded, synthesize = [], rtisi_la.synthesize
+
+    def record(frames, *args):  # the committed frames the offline call synthesizes
+        recorded.append(frames)
+        return synthesize(frames, *args)
+
+    monkeypatch.setattr(rtisi_la, "synthesize", record)
+    for fpl in (8, 3, 1):
+        before = rtisi_fused.launches
+        st.RTISI_LA(mag[0], backend="kernel", frames_per_launch=fpl, verbose=False, **kw)
+        assert rtisi_fused.launches - before == -(-(T + 3) // fpl)
+
+    class Recording(st.RTISIStreamer):
+        def _emit(self, committed):
+            self.committed.append(committed)
+            return super()._emit(committed)
+
+    streamer = Recording(1025, backend="kernel", **kw)
+    streamer.committed = []
+    before = rtisi_fused.launches
+    for t in range(T):
+        streamer.push(mag[0, :, t])
+    streamer.flush()
+    torch.cuda.synchronize()
+    assert rtisi_fused.launches - before == T + 3
+    for frames in (*recorded[1:], torch.stack(streamer.committed)):
+        assert torch.equal(frames, recorded[0])
+
+
+def test_rtisi_chunk_rows_is_bitwise(dev):
+    """Batches split into sequential launches by ``chunk_rows`` give the
+    same samples bit for bit, offline and streaming."""
+    mag, kw = _rtisi_input(dev, 5, 1.0)
+    base = st.RTISI_LA(mag, backend="kernel", verbose=False, **kw)
+    for rows in (4, 8):  # 1 and 2 streams per launch
+        assert torch.equal(st.RTISI_LA(mag, backend="kernel", chunk_rows=rows, verbose=False,
+                                       **kw), base)
+
+    def stream(**extra):
+        s = st.RTISIStreamer(1025, batch=5, backend="kernel", **kw, **extra)
+        outs = [s.push(mag[..., t]) for t in range(mag.shape[-1])]
+        return torch.cat([o for o in outs if o is not None] + [s.flush()], dim=1)
+
+    assert torch.equal(stream(chunk_rows=8), stream())

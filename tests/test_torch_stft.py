@@ -100,3 +100,60 @@ def test_zero_envelope_warns_and_is_guarded():
 def test_istft_rejects_real_input():
     with pytest.raises(TypeError):
         ttr.istft(torch.zeros(257, 10))
+
+
+ENTRY_POINTS = ("stft", "istft", "griffin_lim", "ADMM", "phase_init", "RTISI_LA",
+                "RTISIStreamer")
+
+
+def _call_entry(name, to):
+    """Call the public entry point ``name`` on a small input passed through
+    ``to`` (numpy array -> the argument)."""
+    import specinv_tpu_torch as st
+
+    x = make_signal((2000,), dtype=np.float32)
+    spec = ttr.stft(torch.from_numpy(x), 256).numpy()
+    mag = np.abs(spec)
+    quiet = dict(max_iter=1, verbose=False)
+    calls = {
+        "stft": lambda: ttr.stft(to(x), 256),
+        "istft": lambda: ttr.istft(to(spec)),
+        "griffin_lim": lambda: st.griffin_lim(to(mag), **quiet),
+        "ADMM": lambda: st.ADMM(to(mag), **quiet),
+        "phase_init": lambda: st.phase_init(to(mag)),
+        "RTISI_LA": lambda: st.RTISI_LA(to(mag), **quiet),
+        "RTISIStreamer": lambda: st.RTISIStreamer(129, look_ahead=0, max_iter=1).push(
+            to(mag[:, 0])),
+    }
+    return calls[name]()
+
+
+class _Placed(Exception):
+    """Raised by the spy below in place of a tensor on the card."""
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_array_input_goes_to_the_card(monkeypatch, name):
+    """With a card, an array input is placed on it, and a CPU tensor stays
+    on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    as_tensor = torch.as_tensor
+
+    def spy(data, *args, device=None, **kwargs):
+        if device is not None and torch.device(device).type == "cuda":
+            raise _Placed(torch.device(device))
+        return as_tensor(data, *args, device=device, **kwargs)
+
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    with pytest.raises(_Placed) as placed:
+        _call_entry(name, lambda a: a)
+    assert placed.value.args[0].type == "cuda"
+    out = _call_entry(name, torch.from_numpy)
+    assert out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_array_input_without_card_raises(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="pass a CPU tensor"):
+        _call_entry(name, lambda a: a)
