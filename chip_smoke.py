@@ -95,7 +95,7 @@ RTISI_LA_FRAMES, RTISI_ITERS = 3, 25
 # recursion roughly doubles a rounding difference per committed frame, and
 # the zero-phase start of every new frame under a hann window leaves bins
 # whose phase rounding decides, so both float32 sides drift far from a
-# float64 run of the plain version on the card (my chip run, NVIDIA H100
+# float64 run of the plain version on the card (measured on one NVIDIA H100
 # 80GB HBM3, 700 W), at config 3, batch 16: kernel committed frames 2.5e-2,
 # in flight 9.5e-2, momentum 9.7e-2; plain float32 (cuFFT) 3.3e-2, 1.7e-1,
 # 2.1e-1.  Each limit is twice the sum of the two sides, rounded up.
@@ -103,7 +103,7 @@ RTISI_LIMITS = {"committed": 0.2, "keeped": 0.2, "update": 0.6, "pre": 0.7}
 # The small geometries (batch 2, from step 12) drift far less: at most
 # committed 8.4e-4 / 8.5e-4 (normalized), committed buffer 9.1e-4 / 9.2e-4
 # (normalized), in flight 3.4e-3 / 6.2e-3 and momentum 1.3e-2 / 1.3e-2
-# (4096/1024) for kernel / plain from float64 (my chip run, same card).
+# (4096/1024) for kernel / plain from float64 (measured on the same card).
 # Twice the sum, rounded up.
 RTISI_SMALL_LIMITS = {"committed": 4e-3, "keeped": 4e-3, "update": 2e-2, "pre": 6e-2}
 # The first committed frame of the launch, one step deep: amplified least.

@@ -33,7 +33,7 @@ LR = 0.99 / 1.99
 
 # One launch of K=5 steps, 3 refinements, from the state after 8 frames,
 # float32 on both sides.  Against the plain version in float64 from the same
-# state (my CPU run; sym / asym): the port's committed frames lie 1.5e-6 /
+# state (measured on the CPU; sym / asym): the port's committed frames lie 1.5e-6 /
 # 9.3e-7 of the max from it, JAX's 2.7e-6 / 4.2e-6; the in-flight frames
 # 1.8e-6 / 1.8e-6 and 3.9e-6 / 4.6e-6; the momentum 5.4e-6 / 5.0e-6 and
 # 1.4e-5 / 1.6e-5.  Each band is twice the larger sum of the two sides,
@@ -110,7 +110,7 @@ def test_plain_version_matches_jax_kernel(asym):
 def test_state_conversion_kernel_layout():
     """One step of the JAX kernel-mode streamer and of its XLA streamer from
     the same frames, converted: they agree to 7.6e-5 (committed), 1.2e-4
-    (in flight) and 3.7e-4 (momentum) of the max (my CPU run: two float32
+    (in flight) and 3.7e-4 (momentum) of the max (measured on the CPU: two float32
     FFTs, whose rounding the newest frame's refinements amplify), held at
     1e-3.  Momentum frames in the wrong order differ by 1.15 of the max."""
     win, mag = _frames(LA + 1)

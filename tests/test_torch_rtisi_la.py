@@ -1,4 +1,4 @@
-"""The RTISI-LA slice as a whole: specinv_tpu_torch.RTISI_LA and RTISIStreamer
+"""The RTISI-LA path as a whole: specinv_tpu_torch.RTISI_LA and RTISIStreamer
 on the CPU against specinv_tpu's.
 
 * backend='fft' against the JAX fft backend in float64, atol 1e-10 over 12
@@ -70,7 +70,7 @@ def test_config3_width_fft_path():
     bins whose |S| is tiny against the target, so the projection's phase is
     set by rounding, and the first step's in-flight frames already differ by
     1e-10 between the two packages' FFTs; the recursion amplifies that.  The
-    SCs ended 0.146 dB apart (my CPU run); the bar is the JAX package's own
+    SCs ended 0.146 dB apart (measured on the CPU); the bar is the JAX package's own
     quality-parity bar against the reference, 0.3 dB."""
     from specinv_tpu_torch.utils.corpus import make_speech_like
 
