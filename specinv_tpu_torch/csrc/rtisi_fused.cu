@@ -41,16 +41,19 @@
 // streamer commit the same bits.
 //
 // What bounds it on an H100: at BASELINE config 3 (n 2048, hop 512, la 3,
-// 25 refinements) one launch of k = 8 steps runs 8 x 25 x 4 frames of one
-// forward and one inverse 2048-point FFT, 5 N log2 N flops each (180
-// MFLOP), and the window, momentum, projection and OLA arithmetic beside
-// them: about 200 MFLOP per stream, against about 0.3 MB of input and
-// output.  Over the whole card (67 TFLOP/s FP32) that is 3.0 us per stream
+// 25 refinements) one launch of k = 8 steps needs 8 x 25 x 4 frames of one
+// real forward and one real inverse 2048-point FFT, 2.5 N log2 N flops each
+// (90 MFLOP), and the window, momentum, projection and OLA arithmetic beside
+// them: about 108 MFLOP per stream, against about 0.3 MB of input and
+// output.  Over the whole card (67 TFLOP/s FP32) that is 1.6 us per stream
 // and launch, bound by operations; one block per stream runs on one SM
-// (about 0.51 TFLOP/s), about 49 us per output frame at batch 1.  The radix-2
-// stages move each frame through shared memory 22 times per refinement and
-// wait at a barrier after each, so shared-memory traffic and barriers, not
-// FLOPs, bound this design; radix-4/8 stages in registers are later work.
+// (about 0.51 TFLOP/s), about 27 us per output frame at batch 1.  This
+// kernel transforms each real frame as a complex one, twice the FFT work
+// the bound counts.  The radix-2 stages move each frame through shared
+// memory 22 times per refinement and wait at a barrier after each, so
+// shared-memory traffic and barriers, not FLOPs, bound this design;
+// radix-4/8 stages in registers and a half-length real transform are later
+// work.
 #include <cuda_runtime.h>
 
 #include "fft.cuh"

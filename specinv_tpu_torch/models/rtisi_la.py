@@ -182,7 +182,7 @@ def _scan_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter, v
     return torch.stack(out)
 
 
-def _kernel_launches(target_pad, update0, windows, lr, cfg, la, max_iter, verbose, remat,
+def _kernel_launches(target_pad, update0, windows, lr, cfg, la, max_iter, verbose,
                      frames_per_launch):
     """``ceil(total / k)`` kernel launches of ``k = frames_per_launch``
     steps (the last takes what remains); returns the committed frames."""
@@ -197,16 +197,11 @@ def _kernel_launches(target_pad, update0, windows, lr, cfg, la, max_iter, verbos
         torch.zeros((B, la + 1, n_bins), dtype=torch.complex64, device=update0.device),
     )
 
-    def launch(keeped, update, pre, target):
-        return rtisi_fused.fused_rtisi_steps(keeped, update, pre, target, windows, lr, cfg,
-                                             max_iter)
-
-    if remat:
-        launch = checkpointed(launch)
     out = []
     for i0 in range(0, total, kpl):
         k = min(kpl, total - i0)
-        com, *state = launch(*state, target_pad[:, i0 : i0 + k + la])
+        com, *state = rtisi_fused.fused_rtisi_steps(*state, target_pad[:, i0 : i0 + k + la],
+                                                    windows, lr, cfg, max_iter)
         out.append(com)
         if verbose:
             _report(min(i0 + kpl, total) - 1, total)
@@ -219,7 +214,7 @@ def _chunk_streams(batch: int, chunk_rows, la: int) -> int:
 
 
 def _kernel_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter, verbose,
-                   remat, chunk_rows, frames_per_launch):
+                   chunk_rows, frames_per_launch):
     """The ``'kernel'`` path (float32); with ``chunk_rows`` the streams run
     as sequential chunks of ``chunk_rows // (la+1)``.  Returns the committed
     frames."""
@@ -230,12 +225,12 @@ def _kernel_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter,
     B = target_pad.shape[0]
     chunk_b = _chunk_streams(B, chunk_rows, la)
     if B <= chunk_b:
-        return _kernel_launches(target_pad, update0, *args, verbose, remat, frames_per_launch)
+        return _kernel_launches(target_pad, update0, *args, verbose, frames_per_launch)
     nb = -(-B // chunk_b)
     out = []
     for c in range(nb):
         rows = slice(c * chunk_b, (c + 1) * chunk_b)
-        out.append(_kernel_launches(target_pad[rows], update0[rows], *args, False, remat,
+        out.append(_kernel_launches(target_pad[rows], update0[rows], *args, False,
                                     frames_per_launch))
         if verbose:  # per-frame lines would repeat once per chunk
             _progress_sink(f"rtisi-la chunk {c + 1}/{nb}")
@@ -249,15 +244,16 @@ def run_tm(target_tm, window, lr, cfg: STFTConfig, look_ahead: int,
     """Time-major RTISI-LA: magnitude (B, T, F) -> waveform (B, L).
 
     ``backend`` is ``'kernel'`` or ``'fft'`` (resolved); ``remat``
-    recomputes each step (``'fft'``) or launch (``'kernel'``) in the
-    backward pass.
+    recomputes each step of the ``'fft'`` path in the backward pass (on
+    the card the kernel's backward already keeps only each launch's inputs
+    and replays the plain version).
     """
     steps = target_tm.shape[1]
     la = look_ahead
     target_pad = F.pad(target_tm, (0, 0, la, la))  # la zero frames on both sides
     if backend == "kernel":
         frames = _kernel_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter,
-                                verbose, remat, chunk_rows, frames_per_launch)
+                                verbose, chunk_rows, frames_per_launch)
     else:
         frames = _scan_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter,
                               verbose, remat)
@@ -362,8 +358,9 @@ def RTISI_LA(
     most this many DFT rows ``B * (look_ahead + 1)`` per launch; larger
     batches run as sequential launches, bitwise equal; by default every
     stream is in one launch) and ``frames_per_launch`` (steps per launch,
-    default 8) apply to the kernel only.  ``remat`` recomputes each
-    step or launch in the backward pass.
+    default 8) apply to the kernel only.  ``remat`` recomputes each step
+    of the ``'fft'`` path in the backward pass; on the card the kernel
+    path keeps only each launch's inputs anyway.
     """
     if not (max_iter > 0 and alpha >= 0):
         raise ValueError(f"need max_iter > 0 and alpha >= 0 (got {max_iter}, {alpha})")
