@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: Griffin-Lim
-(config 1), ADMM (config 2) and RTISI-LA offline and streaming (config 3).
+(config 1) and ADMM (config 2) through the whole-run kernels and through the
+direct-DFT kernels, Griffin-Lim at n_fft 400 / hop 160 through 'auto', and
+RTISI-LA offline and streaming (config 3).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card, ``nvcc`` and no network, and fails (nonzero exit, no result line)
@@ -14,7 +16,13 @@ without them.  Phases, each of which raises on failure:
    (``csrc/admm_fullrun.cu``) at the main paths' shapes (n_fft 2048, hop
    512, 431 frames; 1 and 5 iterations) and, at a batch of 2 small clips, in
    every pad mode, with ``center=False``, with hops that do not divide n_fft,
-   ``normalized=True`` and ``onesided=False``; the RTISI-LA kernel
+   ``normalized=True`` and ``onesided=False``; the direct-DFT kernels
+   (``csrc/gl_fused.cu``, ``csrc/admm_fused.cu`` on ``csrc/dft_iter.cuh``)
+   at config 1 in every precision tier ('high', 'bf16x2', 'bf16x2t',
+   'highest', 'default', and a ('high', 'bf16x2') pair for GL) and at batch
+   2 on small clips (every pad mode, ``center=False``, ``normalized=True``
+   and the C7 geometries 400/160, 512/160, 1024/240), 1 and 5 iterations,
+   each beside a float64 run of the plain version; the RTISI-LA kernel
    (``csrc/rtisi_fused.cu``) over 8 steps from a real mid-clip state at
    config 3 (batch 1 and 16) and at small geometries (batch 2), each step
    a one-step launch from the plain version's state beside a float64 run
@@ -25,15 +33,23 @@ without them.  Phases, each of which raises on failure:
    just after, and the final spectral convergence held against the
    ``torch.fft`` path: ``specinv_tpu_torch.griffin_lim`` and then
    ``specinv_tpu_torch.ADMM`` (rho 0.1), 100 iterations, tol 0, then the
-   same call with early stopping; ``specinv_tpu_torch.RTISI_LA`` (look-ahead
-   3, 25 refinements: 55 launches), then ``RTISIStreamer`` over the same
-   frames (434 launches, the offline path's committed frames bit for bit);
-5. marginal microseconds per iteration of the kernel and ``torch.fft``
-   paths of GL and ADMM, from CUDA events, by differencing 200 and 100
-   iterations, and each whole-run kernel against its plain version; RTISI-LA
-   microseconds per output frame of both paths at batch 1 and 16 (a 10 s
-   against a 5 s clip), microseconds per streamer push, and the RTISI
-   kernel against its plain version per launch.
+   same call with early stopping, through the whole-run kernels
+   (``backend='auto'``) and through the direct-DFT kernels
+   (``backend='dft'``, precision 'high'), with the float64 ``torch.fft``
+   path's SC beside them; ``griffin_lim(backend='auto')`` at n_fft 400 /
+   hop 160, which must launch ``gl_fused`` and nothing else;
+   ``specinv_tpu_torch.RTISI_LA`` (look-ahead 3, 25 refinements: 55
+   launches), then ``RTISIStreamer`` over the same frames (434 launches, the
+   offline path's committed frames bit for bit);
+5. marginal microseconds per iteration of the kernel, 'dft' ('high' and
+   'highest') and ``torch.fft`` paths of GL and ADMM, and of the 'dft' and
+   ``torch.fft`` paths at 400/160, from CUDA events, by differencing 200 and
+   100 iterations, and each kernel against its plain version (a direct-DFT
+   iteration beside cuBLAS bf16 products of the same shapes, a yardstick
+   the port never calls); RTISI-LA microseconds per output frame of both
+   paths at batch 1 and 16 (a 10 s against a 5 s clip), microseconds per
+   streamer push, and the RTISI kernel against its plain version per
+   launch.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object with each kernel's launches, error, times and bound;
@@ -126,9 +142,74 @@ RTISI_SMALL_LIMITS = {"committed": 2e-5, "keeped": 2e-5, "update": 3e-3, "pre": 
 RTISI_SC_BAND_DB = 1.5
 RTISI_SC_CEILING_DB = -21.5
 
+# The direct-DFT kernels (gl_fused.cu, admm_fused.cu) against their plain
+# versions, float32, relative to the largest value of the plain output: each
+# runs 5 chained iterations from the same state beside the plain version in
+# float32 and in float64 with the same bf16 splits (the anchor), checked
+# after 1 and 5, at config 1/2 and the small set (limits per tier, the worst
+# case over all of them).  Readings on one NVIDIA H100 80GB HBM3, 700 W, as
+# the kernel's / the plain float32 version's distance from float64, x / |S|
+# / state:
+#   GL   high     1 it 1.6e-5/6.6e-6  3.3e-6/2.9e-7  5.8e-6/5.6e-7
+#                 5 it 1.0e-4/8.0e-5  8.2e-5/6.1e-5  1.5e-4/9.2e-5
+#        bf16x2   1 it 1.4e-4/3.9e-5  3.3e-6/2.7e-7  5.8e-6/5.5e-7
+#                 5 it 1.8e-2/1.5e-2  1.6e-2/1.1e-2  3.4e-2/3.0e-2
+#        bf16x2t  1 it 3.1e-5/3.6e-5  3.2e-6/2.8e-7  5.8e-6/5.6e-7
+#                 5 it 4.8e-4/1.9e-4  8.4e-5/4.0e-5  1.2e-4/7.3e-5
+#        highest  1 it 2.9e-6/3.5e-6  1.4e-6/4.0e-7  2.7e-6/7.1e-7
+#                 5 it 4.1e-5/2.5e-5  1.6e-5/3.8e-5  3.2e-5/3.9e-5
+#        default  1 it 5.4e-4/5.4e-4  3.2e-6/2.9e-7  5.7e-6/5.0e-7
+#                 5 it 1.4e-2/1.9e-2  8.5e-3/4.8e-3  1.3e-2/9.5e-3
+#        pair     1 it 1.4e-4/3.9e-5  3.3e-6/2.9e-7  5.8e-6/5.6e-7
+#                 5 it 8.2e-4/5.2e-4  6.8e-4/5.7e-4  1.8e-3/9.3e-4
+#   ADMM high     1 it 1.4e-5/1.2e-5  3.3e-6/2.9e-7  5.1e-5/2.9e-5
+#                 5 it 1.4e-3/1.4e-3  6.5e-4/9.2e-4  3.1e-3/8.7e-3
+#        bf16x2   1 it 2.7e-4/7.7e-5  3.3e-6/2.7e-7  5.3e-5/4.2e-6
+#                 5 it 1.1e-2/1.2e-2  1.4e-2/1.5e-2  4.5e-2/4.7e-2
+#        bf16x2t  1 it 4.7e-6/3.4e-6  3.2e-6/2.8e-7  1.7e-5/1.2e-5
+#                 5 it 1.3e-4/1.6e-4  5.5e-5/6.2e-5  4.2e-4/9.0e-4
+#        highest  1 it 2.8e-6/6.0e-6  1.4e-6/4.0e-7  1.4e-5/1.4e-5
+#                 5 it 3.7e-5/4.7e-5  4.7e-5/3.1e-5  2.0e-4/1.4e-4
+#        default  1 it 6.7e-5/1.6e-5  3.2e-6/2.9e-7  1.7e-5/6.3e-6
+#                 5 it 1.3e-2/8.8e-3  1.1e-2/3.8e-3  4.7e-2/3.2e-2
+# Each limit is twice the sum of the two sides, rounded up to one digit.
+# The tiers that round an operand to one bf16 half ('bf16x2' drops the
+# data's low half in the inverse, 'default' both) let an ulp of difference
+# in float32 move a value to the neighbouring bf16 value, and over 5
+# iterations that compounds: their 5-iteration limits are wide, and their
+# 1-iteration limits are what holds the kernel's arithmetic.
+DFT_TIERS = ("high", "bf16x2", "bf16x2t", "highest", "default", ("high", "bf16x2"))
+DFT_LIMITS = {  # {tier: {iterations: (x, |S|, state)}}
+    "high": {1: (5e-5, 8e-6, 2e-5), 5: (4e-4, 3e-4, 5e-4)},
+    "bf16x2": {1: (4e-4, 8e-6, 2e-5), 5: (7e-2, 6e-2, 2e-1)},
+    "bf16x2t": {1: (2e-4, 7e-6, 2e-5), 5: (2e-3, 3e-4, 4e-4)},
+    "highest": {1: (2e-5, 4e-6, 7e-6), 5: (2e-4, 2e-4, 2e-4)},
+    "default": {1: (3e-3, 7e-6, 2e-5), 5: (7e-2, 3e-2, 5e-2)},
+    ("high", "bf16x2"): {1: (4e-4, 8e-6, 2e-5), 5: (3e-3, 3e-3, 6e-3)},
+}
+DFT_ADMM_LIMITS = {
+    "high": {1: (6e-5, 8e-6, 2e-4), 5: (6e-3, 4e-3, 3e-2)},
+    "bf16x2": {1: (7e-4, 8e-6, 2e-4), 5: (5e-2, 6e-2, 2e-1)},
+    "bf16x2t": {1: (2e-5, 7e-6, 6e-5), 5: (6e-4, 3e-4, 3e-3)},
+    "highest": {1: (2e-5, 4e-6, 6e-5), 5: (2e-4, 2e-4, 7e-4)},
+    "default": {1: (2e-4, 7e-6, 5e-5), 5: (5e-2, 3e-2, 2e-1)},
+}
+# Final SC (dB) of the 'dft' paths (precision 'high') against the torch.fft
+# paths after 100 iterations.  Beside them the torch.fft path in float64 from
+# the same magnitude (its own float64 SPSI seed) is the anchor: on an H100 the
+# 'dft' / float32 fft paths ended 0.0240 / 0.0239 dB from it for GL at config
+# 1, 0.1182 / 0.0326 dB for ADMM at config 2 and 0.0031 / 0.0031 dB for GL
+# at 400/160.  Each band is twice the sum, rounded up to one digit.
+DFT_SC_BAND_DB, DFT_ADMM_SC_BAND_DB, C7_SC_BAND_DB = 0.1, 0.4, 0.02
+# C7 geometry of the 'auto' drive: n_fft 400, hop 160 (no whole-run kernel)
+C7_N_FFT, C7_HOP = 400, 160
+
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
-# memory bandwidth and FP32 rate outside the tensor cores.
-PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+# memory bandwidth, FP32 rate outside the tensor cores and dense bf16 rate
+# of the tensor cores.
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
+# bf16 tensor-core passes of each direct-DFT tier ('highest' is float32)
+DFT_PASSES = {"default": 1, "high": 3, "bf16x2": 2, "bf16x2t": 2, "highest": 1}
 
 
 def smi_line() -> str:
@@ -208,10 +289,11 @@ def check_kernel(label, mod, run, scalar, cfg, state, n_iters, limits):
     return abs_err(x, rx)
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
     """The least time the card could take for work that moves ``n_bytes``
-    and does ``flops`` FP32 operations: ``(ms, "bytes" or "operations")``."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    and does ``flops`` operations at the rate ``peak`` (FP32 unless given):
+    ``(ms, "bytes" or "operations")``."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -322,6 +404,50 @@ def check_rtisi(label, cfg, la, target, windows, state, i0, limits, k=8):
     return com_err
 
 
+def rel64(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``max |a - b| / max |b|`` in float64 (complex as pairs of reals)."""
+    a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
+def check_dft(label, mod, run, scalar, cfg, state, precision, extra, limits, n_iters=5):
+    """``n_iters`` chained iterations of the kernel ``mod.<run>``, of its
+    plain version in float32 and of its plain version in float64 (the
+    anchor), each from ``state``; after 1 and ``n_iters`` iterations the
+    kernel is held to the plain float32 version within ``limits[it]``.
+    Prints kernel-plain, kernel-f64 and plain-f64 distances; returns the
+    max abs error of x and those readings ``{it: [(k-p, k-a, p-a) for x,
+    |S|, state]}``."""
+    fn, ref_fn = getattr(mod, run), getattr(mod, f"{run}_reference")
+    x, plane, tgt, win, env = state
+    tgt64, win64, env64 = wide(tgt), wide(win), wide(env)
+    k = p = (x, plane)
+    a = (wide(x), wide(plane))
+    readings, x_err = {}, 0.0
+    for it in range(1, n_iters + 1):
+        kx, km, ks = fn(*k, tgt, win, env, scalar, cfg, *extra, precision=precision)
+        px, pm, ps = ref_fn(*p, tgt, win, env, scalar, cfg, *extra, precision=precision)
+        ax, am, as_ = ref_fn(*a, tgt64, win64, env64, scalar, cfg, *extra, precision=precision)
+        k, p, a = (kx, ks), (px, ps), (ax, as_)
+        if it in (1, n_iters):
+            torch.cuda.synchronize()
+            readings[it] = [(rel64(u, v), rel64(u, w), rel64(v, w))
+                            for u, v, w in ((kx, px, ax), (km, pm, am), (ks, ps, as_))]
+            x_err = max(x_err, abs_err(kx, px))
+    for it, rows in readings.items():
+        print(f"  {label} {precision}, {it} it: " + "; ".join(
+            f"{q} {r[0]:.2e} (kernel/plain from float64 {r[1]:.2e}/{r[2]:.2e})"
+            for q, r in zip(("x", "|S|", "state"), rows)), flush=True)
+        for q, r, lim in zip(("x", "|S|", "state"), rows, limits[it]):
+            check(f"{label} {precision} {q} after {it}", r[0], lim)
+    return x_err, readings
+
+
 def marginal_us(fn):
     """Marginal microseconds per iteration of ``fn(n_iters)``: CUDA-event
     medians of 3 runs at 200 and at 100 iterations, differenced."""
@@ -339,10 +465,12 @@ def main() -> None:
         raise SystemExit("chip_smoke: run it from the root of a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import specinv_tpu_torch as st
-    from specinv_tpu_torch.ops.cuda import _build, admm_fullrun, fft, gl_fullrun, rtisi_fused
+    from specinv_tpu_torch.ops.cuda import (
+        _build, admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
+    )
     from specinv_tpu_torch.utils.corpus import make_speech_like
 
-    counted = (gl_fullrun, admm_fullrun, fft, rtisi_fused)
+    counted = (gl_fullrun, admm_fullrun, fft, rtisi_fused, gl_fused, admm_fused)
     t_start = time.perf_counter()
 
     def since() -> str:
@@ -398,6 +526,49 @@ def main() -> None:
         check_kernel(f"admm {n_fft}/{hop} {extra or 'defaults'}, 5 it", admm_fullrun,
                      "fused_admm_run", ADMM_RHO, cfg, state, 5, admm_limits)
 
+    print(f"[3] gl_fused.cu / admm_fused.cu (direct DFT, tensor cores): 1 and 5 iterations "
+          f"beside a float64 plain run {since()}", flush=True)
+    gl_dft_err = admm_dft_err = 0.0
+    dft_readings = {}
+
+    def note(key, readings):  # the worst reading per (algorithm, tier, iterations)
+        for it, rows in readings.items():
+            old = dft_readings.setdefault((*key, it), rows)
+            dft_readings[(*key, it)] = [tuple(map(max, a, b)) for a, b in zip(old, rows)]
+
+    for tier in DFT_TIERS:
+        err, r = check_dft("gl config 1", gl_fused, "fused_gl_iteration", lr, cfg1, state1, tier,
+                           (), DFT_LIMITS[tier])
+        gl_dft_err = max(gl_dft_err, err)
+        note(("gl", str(tier)), r)
+        if isinstance(tier, tuple):
+            continue
+        err, r = check_dft("admm config 2", admm_fused, "fused_admm_iteration", ADMM_RHO, cfg1,
+                           state1, tier, (0,), DFT_ADMM_LIMITS[tier])
+        admm_dft_err = max(admm_dft_err, err)
+        note(("admm", tier), r)
+    dft_small = small[:4] + [(512, 128, dict(center=False)), (512, 128, dict(normalized=True)),
+                             (400, 160, {}), (512, 160, {}), (1024, 240, {})]
+    for n_fft, hop, extra in dft_small:
+        cfg, state = kernel_state(n_fft, hop, 7800, 2, dev, **extra)
+        tiers = DFT_TIERS if n_fft == 400 else ("high",)  # every tier at the C7 400/160
+        for tier in tiers:
+            label = f"{n_fft}/{hop} {extra or 'defaults'}"
+            err, r = check_dft(f"gl {label}", gl_fused, "fused_gl_iteration", lr, cfg, state,
+                               tier, (), DFT_LIMITS[tier])
+            gl_dft_err = max(gl_dft_err, err)
+            note(("gl", str(tier)), r)
+            if isinstance(tier, tuple):
+                continue
+            err, r = check_dft(f"admm {label}", admm_fused, "fused_admm_iteration", ADMM_RHO,
+                               cfg, state, tier, (0,), DFT_ADMM_LIMITS[tier])
+            admm_dft_err = max(admm_dft_err, err)
+            note(("admm", tier), r)
+    print("  worst readings (kernel-plain, kernel-f64, plain-f64; x / |S| / state):", flush=True)
+    for key, rows in dft_readings.items():
+        print(f"    {key}: " + " / ".join(f"({r[0]:.1e}, {r[1]:.1e}, {r[2]:.1e})" for r in rows),
+              flush=True)
+
     print(f"[3] rtisi_fused.cu: 8 single steps from a real state, then a launch of 8 "
           f"{since()}", flush=True)
     rtisi_err, rtisi_mid = 0.0, {}
@@ -442,20 +613,28 @@ def main() -> None:
     def sc_db(y):
         return float(st.sc(st.stft(y, N_FFT, hop_length=HOP, window=window).abs(), mag))
 
-    def drive(name, fn, mod, band, ceiling):
+    scs = {}
+
+    def drive(name, fn, mod, band, ceiling, spec=mag, sc_of=sc_db, kw=kw):
         """One main path: 100 iterations through the kernel (launch count
         read), SC against the torch.fft path, then with early stopping."""
+        expected = (spec.shape[-1] - 1) * kw["hop_length"]
         for counted_mod in counted:
             counted_mod.launches = 0
-        y = fn(mag, max_iter=MAIN_ITERS, tol=0.0, **kw)
+        y = fn(spec, max_iter=MAIN_ITERS, tol=0.0, **kw)
         torch.cuda.synchronize()
         launches = mod.launches
-        if y.shape != (expected_len,) or y.device != clip.device or not bool(torch.isfinite(y).all()):
+        if y.shape != (expected,) or y.device != clip.device or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"bad output: {tuple(y.shape)} on {y.device}")
         if launches != MAIN_ITERS:
             raise AssertionError(f"kernel launched {launches} times, expected {MAIN_ITERS}")
-        y_fft = fn(mag, max_iter=MAIN_ITERS, tol=0.0, backend="fft", **kw)
-        sc_k, sc_f = sc_db(y), sc_db(y_fft)
+        others = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counted
+                  if m is not mod and m.launches}
+        if others:
+            raise AssertionError(f"{name}: other kernels launched on this path: {others}")
+        y_fft = fn(spec, max_iter=MAIN_ITERS, tol=0.0, backend="fft", **kw)
+        sc_k, sc_f = sc_of(y), sc_of(y_fft)
+        scs[name] = (sc_k, sc_f)
         print(f"  kernel launches {launches} (expected {MAIN_ITERS}); output {tuple(y.shape)} finite",
               flush=True)
         print(f"  SC after {MAIN_ITERS} it: kernel {sc_k:.4f} dB, fft {sc_f:.4f} dB, "
@@ -465,12 +644,20 @@ def main() -> None:
         if not sc_k < ceiling:
             raise AssertionError(f"{name}: SC {sc_k:.2f} dB is not below {ceiling} dB")
         before = mod.launches
-        y_es = fn(mag, max_iter=MAIN_ITERS, tol=1e-6, eva_iter=10, **kw)
+        y_es = fn(spec, max_iter=MAIN_ITERS, tol=1e-6, eva_iter=10, **kw)
         es_launches = mod.launches - before
-        print(f"  tol=1e-6, eva_iter=10: {es_launches} launches, SC {sc_db(y_es):.4f} dB", flush=True)
+        print(f"  tol=1e-6, eva_iter=10: {es_launches} launches, SC {sc_of(y_es):.4f} dB", flush=True)
         if es_launches != MAIN_ITERS or not bool(torch.isfinite(y_es).all()):
             raise AssertionError(f"{name}: early-stopping run went wrong")
         return launches
+
+    def sc_anchor(fn, spec=mag, n_fft=N_FFT, kw=kw):
+        """Final SC (dB) of the torch.fft path in float64 from ``spec``."""
+        w64 = kw["window"].double()
+        k64 = dict(kw, window=w64)
+        y64 = fn(spec.double(), max_iter=MAIN_ITERS, tol=0.0, backend="fft", **k64)
+        return float(st.sc(st.stft(y64, n_fft, hop_length=kw["hop_length"], window=w64).abs(),
+                           spec.double()))
 
     print(f"[4] main path: griffin_lim, 10 s clip, n_fft 2048, hop 512, 100 iterations "
           f"{since()}", flush=True)
@@ -482,6 +669,43 @@ def main() -> None:
     print(f"[4] main path: ADMM, rho {ADMM_RHO}, 10 s clip, n_fft 2048, hop 512, 100 iterations",
           flush=True)
     admm_launches = drive("ADMM", admm, admm_fullrun, ADMM_SC_BAND_DB, ADMM_SC_CEILING_DB)
+
+    def gl_dft(spec, backend="dft", **k):
+        return st.griffin_lim(spec, backend=backend, **k)
+
+    def admm_dft(spec, backend="dft", **k):
+        return st.ADMM(spec, rho=ADMM_RHO, backend=backend, **k)
+
+    print(f"[4] main path: griffin_lim(backend='dft'), config 1, {MAIN_ITERS} iterations, "
+          f"precision {st.ops.fourier.default_precision()} {since()}", flush=True)
+    gl_dft_launches = drive("griffin_lim dft", gl_dft, gl_fused, DFT_SC_BAND_DB, SC_CEILING_DB)
+    print(f"[4] main path: ADMM(backend='dft'), rho {ADMM_RHO}, config 2, {MAIN_ITERS} "
+          f"iterations {since()}", flush=True)
+    admm_dft_launches = drive("ADMM dft", admm_dft, admm_fused, DFT_ADMM_SC_BAND_DB,
+                              ADMM_SC_CEILING_DB)
+    sc64 = {"griffin_lim": sc_anchor(st.griffin_lim), "ADMM": sc_anchor(admm_dft)}
+    for name in ("griffin_lim", "ADMM"):
+        print(f"  {name} float64 fft path SC {sc64[name]:.4f} dB; distance from it: kernel "
+              f"{abs(scs[name][0] - sc64[name]):.4f}, dft {abs(scs[name + ' dft'][0] - sc64[name]):.4f}"
+              f", float32 fft {abs(scs[name][1] - sc64[name]):.4f} dB", flush=True)
+
+    c7_window = torch.hann_window(C7_N_FFT, device=dev)
+    c7_kw = dict(hop_length=C7_HOP, window=c7_window, verbose=False)
+    c7_mag = st.stft(clip, C7_N_FFT, hop_length=C7_HOP, window=c7_window).abs()
+
+    def c7_sc(y):
+        return float(st.sc(st.stft(y, C7_N_FFT, hop_length=C7_HOP, window=c7_window).abs(),
+                           c7_mag))
+
+    print(f"[4] main path: griffin_lim(backend='auto'), 10 s clip, n_fft {C7_N_FFT}, hop "
+          f"{C7_HOP} ({c7_mag.shape[-1]} frames, F {c7_mag.shape[0]}): the direct-DFT kernel "
+          f"{since()}", flush=True)
+    drive("griffin_lim auto 400/160", st.griffin_lim, gl_fused, C7_SC_BAND_DB, SC_CEILING_DB,
+          spec=c7_mag, sc_of=c7_sc, kw=c7_kw)
+    c7_sc64 = sc_anchor(st.griffin_lim, c7_mag, C7_N_FFT, c7_kw)
+    print(f"  float64 fft path SC {c7_sc64:.4f} dB; distance from it: dft "
+          f"{abs(scs['griffin_lim auto 400/160'][0] - c7_sc64):.4f}, float32 fft "
+          f"{abs(scs['griffin_lim auto 400/160'][1] - c7_sc64):.4f} dB", flush=True)
 
     import importlib
 
@@ -547,15 +771,26 @@ def main() -> None:
     print(f"[5] marginal time per iteration (CUDA events, 200 - 100 iterations) {since()}",
           flush=True)
     paths = (("griffin_lim", st.griffin_lim), ("ADMM", admm))
+    variants = {"fft": dict(backend="fft"), "kernel": dict(backend="kernel"),
+                "dft": dict(backend="dft", precision="high"),
+                "dft highest": dict(backend="dft", precision="highest")}
     us = {}
-    for backend in ("fft", "kernel", "kernel", "fft"):  # both algorithms in each turn
+    # both algorithms in each turn; the turns run forward, then backward
+    for variant in ("fft", "kernel", "dft", "dft highest", "dft highest", "dft", "kernel", "fft"):
         for name, fn in paths:
-            us.setdefault((name, backend), []).append(marginal_us(
-                lambda n: fn(mag, max_iter=n, tol=0.0, backend=backend, **kw)))
+            us.setdefault((name, variant), []).append(marginal_us(
+                lambda n: fn(mag, max_iter=n, tol=0.0, **variants[variant], **kw)))
+    for variant in ("fft", "dft", "dft", "fft"):  # the C7 geometry, 400/160
+        us.setdefault(("griffin_lim 400/160", variant), []).append(marginal_us(
+            lambda n: st.griffin_lim(c7_mag, max_iter=n, tol=0.0, **variants[variant], **c7_kw)))
+    us = {key: float(np.mean(v)) for key, v in us.items()}
     for name, _ in paths:
-        us_k, us_f = (float(np.mean(us[(name, b)])) for b in ("kernel", "fft"))
-        print(f"  {name}: kernel path {us_k:.2f} us/iter ({1e6 / us_k:.1f} it/s), "
-              f"fft path {us_f:.2f} us/iter ({1e6 / us_f:.1f} it/s) on {smi}", flush=True)
+        print(f"  {name}: " + ", ".join(
+            f"{v} path {us[(name, v)]:.2f} us/iter ({1e6 / us[(name, v)]:.1f} it/s)"
+            for v in variants) + f" on {smi}", flush=True)
+    print("  griffin_lim 400/160: " + ", ".join(
+        f"{v} path {us[('griffin_lim 400/160', v)]:.2f} us/iter" for v in ("dft", "fft"))
+          + f" on {smi}", flush=True)
 
     x_pad, seed, tgt, win, inv_env = state1
 
@@ -572,6 +807,42 @@ def main() -> None:
           f"whole-run ADMM kernel {admm_ms * 1000:.2f} us/iter vs plain "
           f"{admm_plain_ms * 1000:.2f}; fft.cuh fwd+inv {fft_ms * 1000:.2f} us vs torch.fft "
           f"{fft_plain_ms * 1000:.2f} on {smi}", flush=True)
+
+    def dft_ms(mod, run, scalar, extra, tier, plain=False):
+        fn = getattr(mod, f"{run}_reference" if plain else run)
+        return time_ms(lambda: fn(x_pad, seed, tgt, win, inv_env, scalar, cfg1, *extra,
+                                  precision=tier), 5 if plain else 20)
+
+    dft_times = {}
+    for name, mod, run, scalar, extra in (("gl_fused", gl_fused, "fused_gl_iteration", lr, ()),
+                                          ("admm_fused", admm_fused, "fused_admm_iteration",
+                                           ADMM_RHO, (0,))):
+        for tier in ("high", "highest"):
+            dft_times[(name, tier)] = (dft_ms(mod, run, scalar, extra, tier),
+                                       dft_ms(mod, run, scalar, extra, tier, plain=True))
+            print(f"  {name} ({tier}), one iteration at config 1: "
+                  f"{dft_times[(name, tier)][0] * 1000:.2f} us vs plain "
+                  f"{dft_times[(name, tier)][1] * 1000:.2f} us on {smi}", flush=True)
+
+    # Yardstick only (the port never calls it): torch.matmul (cuBLAS) on the
+    # same bf16 halves, HIGH's three passes at the forward shape (T, n) @ (n,
+    # 2F) and the inverse shape (T, 2F) @ (2F, n).
+    from specinv_tpu_torch.ops import dft as dft_ops
+    from specinv_tpu_torch.ops.cuda import _dft
+    from specinv_tpu_torch.ops.framing import frame as frame_of
+
+    _, _, _, cos_hi, cos_lo, sin_hi, sin_lo = _dft.device_tables(N_FFT, False, dev)
+    b_hi, b_lo = torch.cat([cos_hi, sin_hi], 1), torch.cat([cos_lo, sin_lo], 1)
+    a_hi, a_lo = dft_ops.split_bf16((frame_of(x_pad, N_FFT, HOP) * win)[0].contiguous())
+    p_hi, p_lo = dft_ops.split_bf16(torch.view_as_real(seed[0]).transpose(-1, -2)
+                                    .reshape(-1, 2 * seed.shape[-1]).contiguous())
+    bt_hi, bt_lo = b_hi.t().contiguous(), b_lo.t().contiguous()
+    fwd_lib_ms = time_ms(lambda: (a_hi @ b_hi, a_hi @ b_lo, a_lo @ b_hi), 20)
+    inv_lib_ms = time_ms(lambda: (p_hi @ bt_hi, p_hi @ bt_lo, p_lo @ bt_hi), 20)
+    print(f"  yardstick: cuBLAS bf16 torch.matmul, HIGH's 3 passes, forward "
+          f"{tuple(a_hi.shape)} @ {tuple(b_hi.shape)} {fwd_lib_ms * 1000:.2f} us, inverse "
+          f"{tuple(p_hi.shape)} @ {tuple(bt_hi.shape)} {inv_lib_ms * 1000:.2f} us, together "
+          f"{(fwd_lib_ms + inv_lib_ms) * 1000:.2f} us on {smi}", flush=True)
 
     print(f"[5] RTISI-LA per output frame: 10 s against 5 s clip, median of 3 {since()}",
           flush=True)
@@ -642,6 +913,25 @@ def main() -> None:
     print(f"  bounds (ms): gl {gl_bound}, admm {admm_bound}, fft {fft_bound}, rtisi {rtisi_bound}"
           f"; rtisi operations per step on one of {n_sm} SMs: {rtisi_sm_us} us", flush=True)
 
+    def dft_bound(tier):
+        """One direct-DFT iteration at config 1: each input read once (x,
+        the state, the target, window, envelope, fold weights and the tables
+        the tier reads), each output written once (x, the state, |S|); the
+        tier's tensor-core passes, 8 T n F operations each (both products, re
+        and im), at the bf16 rate, or at the FP32 rate for 'highest'.  The
+        middle's ~20 FP32 operations per bin run beside them and are left
+        out."""
+        n_bins = F1
+        halves = 2 if tier in ("high", "bf16x2") else 1  # bf16 halves of cos and sin read
+        table_bytes = 2 * N_FFT * n_bins * (4 if tier == "highest" else 2 * halves)
+        io = nbytes(x_pad, seed, tgt, win, inv_env) + nbytes(x_pad, seed, tgt) + 4 * n_bins
+        flops = DFT_PASSES[tier] * 8 * T1 * N_FFT * n_bins
+        return bound(io + table_bytes, flops,
+                     PEAK_FP32_FLOPS if tier == "highest" else PEAK_BF16_FLOPS)
+
+    dft_bounds = {tier: dft_bound(tier) for tier in ("high", "highest")}
+    print(f"  direct-DFT bounds per iteration (ms): {dft_bounds}", flush=True)
+
     def timing(ms, plain_ms, bnd, library_ms=None):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
@@ -668,6 +958,16 @@ def main() -> None:
                      "specinv_tpu/ops/pallas/rtisi_fused4.py:61",
          "launches": rtisi_launches + stream_launches, "max_abs_err": rtisi_err,
          **timing(rtisi_ms, rtisi_plain_ms, rtisi_bound)},
+        # one iteration at config 1 in the default tier (HIGH); launches: the
+        # 'dft' main path's (the 400/160 'auto' drive launched it too)
+        {"name": "gl_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fused.cu",
+         "replaces": "specinv_tpu/ops/pallas/gl_fused.py:193",
+         "launches": gl_dft_launches, "max_abs_err": gl_dft_err,
+         **timing(*dft_times[("gl_fused", "high")], dft_bounds["high"])},
+        {"name": "admm_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fused.cu",
+         "replaces": "specinv_tpu/ops/pallas/admm_fused.py:41",
+         "launches": admm_dft_launches, "max_abs_err": admm_dft_err,
+         **timing(*dft_times[("admm_fused", "high")], dft_bounds["high"])},
     ]
     print(f"  done {since()}", flush=True)
     print(json.dumps({"kernels": kernels}))

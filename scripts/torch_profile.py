@@ -7,9 +7,12 @@ Run from the root of a checkout: ``python3 scripts/torch_profile.py``
 
 1. ``torch.profiler`` over one call of each path, after a warm-up call:
    griffin_lim and ADMM (BASELINE configs 1 and 2: a 10 s speech-like clip,
-   n_fft 2048, hop 512, 50 iterations, tol 0) and RTISI_LA (config 3:
-   look-ahead 3, 25 refinements, a 2 s clip at batch 1 and 16), each
-   through the kernel and the ``torch.fft`` path.  Per unit of work (an
+   n_fft 2048, hop 512, 50 iterations, tol 0) through the whole-run kernel,
+   the direct-DFT kernel ('dft', precision 'high') and the ``torch.fft``
+   path; griffin_lim at n_fft 400 / hop 160 (ROADMAP cell C7) through
+   'dft' and ``torch.fft``; and RTISI_LA (config 3: look-ahead 3, 25
+   refinements, a 2 s clip at batch 1 and 16) through the kernel and the
+   ``torch.fft`` path.  Per unit of work (an
    iteration, or an output-frame step) it prints the device kernels and the
    device time, then the call's wall time, the device's idle share of it
    (1 - the union of kernel intervals over the wall time) and the top
@@ -90,10 +93,18 @@ def main() -> None:
     mag10 = mags(1, 10.0)[0]
     for name, fn in (("griffin_lim", st.griffin_lim),
                      ("ADMM", lambda m, **k: st.ADMM(m, rho=0.1, **k))):
-        for backend in ("kernel", "fft"):
+        for backend in ("kernel", "dft", "fft"):
             profile_call(f"{name} {backend}, config {1 if name == 'griffin_lim' else 2}",
                          lambda: fn(mag10, max_iter=50, tol=0.0, backend=backend, **kw), 50,
                          "iteration")
+    win400 = torch.hann_window(400, device=dev)
+    kw400 = dict(hop_length=160, window=win400, verbose=False)
+    mag400 = st.stft(torch.from_numpy(make_speech_like(int(SR * 10.0), seed=0).astype(np.float32))
+                     .to(dev), 400, hop_length=160, window=win400).abs()
+    for backend in ("dft", "fft"):
+        profile_call(f"griffin_lim {backend}, n_fft 400 / hop 160",
+                     lambda: st.griffin_lim(mag400, max_iter=50, tol=0.0, backend=backend,
+                                            **kw400), 50, "iteration")
     rtisi_kw = dict(look_ahead=3, max_iter=25, **kw)
     for batch in (1, 16):
         mag2 = mags(batch, 2.0)

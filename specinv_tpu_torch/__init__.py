@@ -3,11 +3,12 @@
 The port of ``specinv_tpu`` (JAX/Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for an NVIDIA H100.  This package imports neither
 JAX nor ``specinv_tpu``; it exports what has been ported so far: the
-Griffin-Lim main path (SPSI phase seed, the whole-run Griffin-Lim kernel and
-its ``torch.fft`` counterpart), ADMM (the whole-run ADMM kernel and the
-literal ``torch.fft`` chain), RTISI-LA offline and streaming (the multi-step
-RTISI kernel and the literal ``torch.fft`` step), the STFT pair and the
-metrics.
+Griffin-Lim main path (SPSI phase seed, the whole-run Griffin-Lim kernel,
+the direct-DFT iteration kernel of ``backend='dft'`` with the JAX precision
+tiers, and the ``torch.fft`` path), ADMM (the whole-run and direct-DFT ADMM
+kernels and the literal ``torch.fft`` chain), RTISI-LA offline and streaming
+(the multi-step RTISI kernel and the literal ``torch.fft`` step), the STFT
+pair and the metrics.
 """
 name = "specinv_tpu_torch"
 __version__ = "0.1.0"

@@ -6,7 +6,8 @@ whole-run kernels keep their planes in the four-step permuted full-spectrum
 layout ``(B, t_pad, m, 128)`` with ``out[..., d, e] = full[..., d + m*e]``
 (``fft4.to_permuted``) and frame rows padded to ``t_pad``; the port keeps
 ``(B, T, F)`` onesided planes in natural bin order and a signal of exactly
-``lp = (T-1)*hop + n_fft`` samples.
+``lp = (T-1)*hop + n_fft`` samples.  The JAX direct-DFT kernels keep natural
+bin order with padded rows and lanes (:func:`dft_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -52,6 +53,31 @@ def state_from_jax(x_pad, pre_re_perm, pre_im_perm, target_perm, n_fft: int, T: 
         hop = (x.shape[-1] - n_fft) // (t_pad - 1)
         x = x[..., : (T - 1) * hop + n_fft]
     return x, pre.astype(np.complex64), plane(target_perm)
+
+
+def dft_state_from_jax(x_pad, re, im, target, n_fft: int, T: int):
+    """The JAX direct-DFT kernels' state -> ``(x_pad, plane, target)`` in
+    the port's layout.
+
+    The JAX ``pallas`` path (``gl_fused`` / ``admm_fused``) keeps ``x_pad
+    (B, lx)``, ``lx = (t_pad-1)*hop + n_fft``, and ``re``, ``im`` and
+    ``target`` as ``(B, t_pad, f_pad)`` planes in natural bin order with
+    ``t_pad - T`` padded rows and ``f_pad - F`` padded lanes.  The signal is
+    trimmed to ``lp`` samples, the planes to ``(B, T, F)``, ``F = n_fft//2 +
+    1``, and ``re``/``im`` (the Griffin-Lim momentum or the ADMM ``Y``)
+    become one complex64 plane.
+    """
+    n_bins = n_fft // 2 + 1
+    x = np.asarray(x_pad)
+    t_pad = np.shape(target)[1]
+    if t_pad > 1:
+        hop = (x.shape[-1] - n_fft) // (t_pad - 1)
+        x = x[..., : (T - 1) * hop + n_fft]
+
+    def plane(p):
+        return np.asarray(p)[:, :T, :n_bins]
+
+    return x, (plane(re) + 1j * plane(im)).astype(np.complex64), plane(target)
 
 
 def rtisi_state_from_jax(state):

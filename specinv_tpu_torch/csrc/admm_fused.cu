@@ -1,0 +1,83 @@
+// One DR-ADMM iteration through the direct DFT on the tensor cores, for
+// Hopper (sm_90a): the forward product with the ADMM middle, the inverse
+// product and the overlap-add (dft_iter.cuh), three launches.  The wrapper
+// (ops/cuda/admm_fused.py) launches one iteration per call.
+//
+// Replaces the TPU kernel specinv_tpu/ops/pallas/admm_fused.py::_kernel
+// (:41, launched at :208 by fused_admm_iteration), the iteration of
+// ADMM(backend='pallas').  It is gl_fused.cu with another middle: the
+// Douglas-Rachford one-variable reduction of the reference's (X, Y, U)
+// chain, in which only Y persists (admm_fused.py:9-17).  Per iteration, for
+// every clip b and frame t:
+//
+//   R   = frames @ C  -  i * frames @ Sn            (the scheme's passes)
+//   mag = |R|                                       (pre-update)
+//   Z   = (rho*Y + R) / (1 + rho)                   (true division)
+//   U'  = Y - Z ;  T' = Z - U'
+//   Y'  = T' * tgt / (|T'| + 1e-16) + U' ;  Y' = 0 for frames t >= valid_t
+//   frame = window * ((Y' w)_re @ C^T - (Y' w)_im @ Sn^T)
+//   x_pad = repad_edges(OLA(frames) * inv_env)
+//
+// The inverse operand is Y' times the fold weights (admm_fused.py:130-134).
+// The port keeps no padded frame rows, so valid_t < T only when a caller
+// asks for it; the mask is applied all the same.
+//
+// What bounds it on an H100: the products are gl_fused.cu's (config 2 has
+// config 1's shapes: HIGH 21.7 GFLOP, 21.9 us of dense bf16; HIGHEST 108 us
+// of float32) and the middle adds about 20 FLOP per bin; the split tiers
+// are bound by the tensor cores, and this first WMMA design without a copy
+// pipeline reaches a fraction of their rate.
+#include <cuda_runtime.h>
+
+#include "dft_iter.cuh"
+
+namespace {
+
+// The DR-reduced update; Y' = 0 on frames past valid_t.  Returns Y' * w.
+struct ADMMDftMiddle {
+  float rho;
+  __device__ __forceinline__ float2 operator()(float2 r, float2& y, float tgt,
+                                               float w, bool valid) const {
+    const float onep = __fadd_rn(1.0f, rho);
+    const float2 z = make_float2(__fdiv_rn(__fadd_rn(__fmul_rn(rho, y.x), r.x), onep),
+                                 __fdiv_rn(__fadd_rn(__fmul_rn(rho, y.y), r.y), onep));
+    const float2 u = make_float2(__fsub_rn(y.x, z.x), __fsub_rn(y.y, z.y));
+    const float2 t = make_float2(__fsub_rn(z.x, u.x), __fsub_rn(z.y, u.y));
+    const float norm = __fadd_rn(
+        __fsqrt_rn(__fadd_rn(__fmul_rn(t.x, t.x), __fmul_rn(t.y, t.y))), specinv::kProjEps);
+    const float g = __fdiv_rn(tgt, norm);
+    y = valid ? make_float2(__fadd_rn(__fmul_rn(t.x, g), u.x),
+                            __fadd_rn(__fmul_rn(t.y, g), u.y))
+              : make_float2(0.0f, 0.0f);
+    return make_float2(__fmul_rn(y.x, w), __fmul_rn(y.y, w));
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// One ADMM iteration: x_in -> x_out (distinct buffers), y_in -> y_out (may
+// be one buffer); spec and frames are scratch, mag may be null.  fwd_scheme
+// and inv_scheme are dft_iter.cuh Scheme codes (ADMM passes one twice).
+int specinv_admm_dft_iteration(const float* x_in, float* x_out,
+                               const float2* y_in, float2* y_out,
+                               const float* target, const float* window,
+                               const float* wts, const float* cos_f,
+                               const float* sin_f, const __nv_bfloat16* cos_hi,
+                               const __nv_bfloat16* cos_lo,
+                               const __nv_bfloat16* sin_hi,
+                               const __nv_bfloat16* sin_lo,
+                               const float* inv_env, float2* spec,
+                               float* frames, float* mag, int B, int T, int n,
+                               int hop, int n_bins, int lp, int p_amt, int e,
+                               int pad_mode, int fwd_scheme, int inv_scheme,
+                               float rho, int valid_t, cudaStream_t stream) {
+  const specinv::Tables tab{cos_f, sin_f, cos_hi, cos_lo, sin_hi, sin_lo};
+  return specinv::run_dft_iteration(
+      x_in, x_out, y_in, y_out, target, window, wts, tab, inv_env, spec,
+      frames, mag, B, T, n, hop, n_bins, lp, p_amt, e, pad_mode, fwd_scheme,
+      inv_scheme, valid_t, ADMMDftMiddle{rho}, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,82 @@
+// One Griffin-Lim iteration through the direct DFT on the tensor cores, for
+// Hopper (sm_90a): the forward product with the Griffin-Lim middle, the
+// inverse product and the overlap-add (dft_iter.cuh), three launches.  The
+// wrapper (ops/cuda/gl_fused.py) launches one iteration per call.
+//
+// Replaces the TPU kernel specinv_tpu/ops/pallas/gl_fused.py::_kernel
+// (:193, launched at :383 by fused_gl_iteration), the iteration of
+// griffin_lim(backend='pallas').  Per iteration, for every clip b and frame t:
+//
+//   frames = window * x_pad[b, t*hop : t*hop + n_fft]
+//   S      = frames @ C  -  i * frames @ Sn        (the scheme's passes)
+//   mag    = |S|                                   (pre-momentum)
+//   S      = S - lr * pre;  pre = S
+//   P      = S * (tgt / (|S| + 1e-16) * w)         (w folded into the gain,
+//                                                   gl_fused.py:284)
+//   frame  = window * (P_re @ C^T - P_im @ Sn^T)
+//   x_pad  = repad_edges(OLA(frames) * inv_env)
+//
+// The TPU kernel keeps the frames and both spectra in VMEM and sweeps the
+// bins as the innermost, sequential grid axis, carrying the inverse partial
+// sums across grid steps.  CUDA blocks cannot carry anything, so the port
+// writes P (B, T, F) and the windowed frames (B, T, n_fft) to device memory
+// between three launches; at the main path both fit in the 50 MB L2.
+//
+// What bounds it on an H100: at config 1 (431 frames, n_fft 2048, F 1025)
+// one split pass of both products is 2 x 2 x 2 x 431 x 2048 x 1025 = 7.24
+// GFLOP, so HIGH (three passes) is 21.7 GFLOP, 21.9 us at the 989 TFLOP/s
+// of dense bf16, and HIGHEST 7.24 GFLOP of float32, 108 us at 67 TFLOP/s;
+// the bytes (state, target, mag, P, frames, tables) are about 40 MB, 12 us
+// at 3.35 TB/s.  The split tiers are bound by the tensor cores.  This first
+// design uses WMMA fragments from shared-memory tiles without a copy
+// pipeline (no TMA, no wgmma), so it reaches a fraction of that rate; the
+// tables stream from L2 once per 64-frame row of tiles.
+#include <cuda_runtime.h>
+
+#include "dft_iter.cuh"
+
+namespace {
+
+// Momentum S - lr*pre (stored as the new pre), then the projection with
+// the fold weight in the gain; every product and sum rounded on its own.
+struct GLDftMiddle {
+  float lr;
+  __device__ __forceinline__ float2 operator()(float2 s, float2& pre, float tgt,
+                                               float w, bool) const {
+    s.x = __fsub_rn(s.x, __fmul_rn(lr, pre.x));
+    s.y = __fsub_rn(s.y, __fmul_rn(lr, pre.y));
+    pre = s;
+    const float norm = __fadd_rn(
+        __fsqrt_rn(__fadd_rn(__fmul_rn(s.x, s.x), __fmul_rn(s.y, s.y))), specinv::kProjEps);
+    const float g = __fmul_rn(__fdiv_rn(tgt, norm), w);
+    return make_float2(__fmul_rn(s.x, g), __fmul_rn(s.y, g));
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// One Griffin-Lim iteration: x_in -> x_out (distinct buffers), pre_in ->
+// pre_out (may be one buffer); spec and frames are scratch, mag may be
+// null.  fwd_scheme and inv_scheme are dft_iter.cuh Scheme codes.
+int specinv_gl_dft_iteration(const float* x_in, float* x_out,
+                             const float2* pre_in, float2* pre_out,
+                             const float* target, const float* window,
+                             const float* wts, const float* cos_f,
+                             const float* sin_f, const __nv_bfloat16* cos_hi,
+                             const __nv_bfloat16* cos_lo,
+                             const __nv_bfloat16* sin_hi,
+                             const __nv_bfloat16* sin_lo, const float* inv_env,
+                             float2* spec, float* frames, float* mag, int B,
+                             int T, int n, int hop, int n_bins, int lp,
+                             int p_amt, int e, int pad_mode, int fwd_scheme,
+                             int inv_scheme, float lr, cudaStream_t stream) {
+  const specinv::Tables tab{cos_f, sin_f, cos_hi, cos_lo, sin_hi, sin_lo};
+  return specinv::run_dft_iteration(
+      x_in, x_out, pre_in, pre_out, target, window, wts, tab, inv_env, spec,
+      frames, mag, B, T, n, hop, n_bins, lp, p_amt, e, pad_mode, fwd_scheme,
+      inv_scheme, T, GLDftMiddle{lr}, stream);
+}
+
+}  // extern "C"

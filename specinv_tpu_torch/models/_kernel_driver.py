@@ -1,7 +1,8 @@
-"""Geometry, glue and plain twins for the whole-run kernel drivers.
+"""Geometry, glue and plain twins for the kernel drivers.
 
-Counterpart of ``specinv_tpu/models/_pallas_driver.py``.  The kernel path
-iterates a signal held in *padded coordinates*: the center padding lives
+Counterpart of ``specinv_tpu/models/_pallas_driver.py``.  The kernel paths
+(the whole-run kernels and the direct-DFT kernels of ``backend='dft'``)
+iterate a signal held in *padded coordinates*: the center padding lives
 inside the buffer, each iteration multiplies the overlap-add by
 ``interior_mask / envelope`` and then re-writes the two ``pad_amount``-sample
 edges according to the pad mode, which is what ``torch.stft``'s centering
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import STFTConfig
-from ..ops import fourier
+from ..ops import dft, fourier
 from ..ops.framing import frame, ola_envelope, overlap_add
 from ..utils.runner import iterate_segmented, stats_eval_fns
 
@@ -126,6 +127,81 @@ def admm_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedG
     fr = fourier.inverse(y_new, cfg) * window
     y = overlap_add(fr, cfg.hop_length) * inv_env
     return (repad_edges(y, cfg, geo), y_new), mag
+
+
+def _dft_forward(frames, tables, scheme):
+    """``(re, im)`` of the direct DFT of windowed frames (``gl_fused``'s
+    ``frames @ C`` and ``-(frames @ Sn)``)."""
+    cos, sin, _ = tables
+    return dft.scheme_matmul(frames, cos, scheme), -dft.scheme_matmul(frames, sin, scheme)
+
+
+def _dft_inverse(p_re, p_im, tables, scheme):
+    """``P_re @ C^T - P_im @ Sn^T``: real frames from a spectrum whose fold
+    weights are already folded in."""
+    cos, sin, _ = tables
+    return dft.scheme_matmul(p_re, cos.T, scheme) - dft.scheme_matmul(p_im, sin.T, scheme)
+
+
+def gl_dft_twin(state, target, window, inv_env, lr, cfg: STFTConfig, geo: PaddedGeometry,
+                precision="high"):
+    """One Griffin-Lim iteration of the direct-DFT kernel's math in plain
+    PyTorch, the counterpart of the JAX ``gl_xla_twin``.
+
+    ``state = (x_pad (B, lp), pre (B, T, F) complex)``; returns ``((x_pad,
+    pre), mag)`` with ``mag`` the pre-momentum ``|S|``.  ``precision`` is a
+    scheme of ``ops/dft.py`` or a ``(forward, inverse)`` pair.  This is the
+    plain version of ``csrc/gl_fused.cu`` (its CPU path and its check on
+    the card) and, at ``'highest'``, its backward.  It computes in
+    ``x_pad``'s type.
+    """
+    x_pad, pre = state
+    fwd, inv = dft.split_schemes(precision)
+    tables = dft.table_tensors(cfg.n_fft, cfg.normalized, x_pad.device, x_pad.dtype)
+    frames = frame(x_pad, cfg.n_fft, cfg.hop_length) * window
+    s_re, s_im = _dft_forward(frames, tables, fwd)
+    mag = torch.sqrt(s_re * s_re + s_im * s_im + 1e-30)
+    s_re = s_re - lr * pre.real
+    s_im = s_im - lr * pre.imag
+    norm = torch.sqrt(s_re * s_re + s_im * s_im + 1e-30) + PROJ_EPS
+    gain = target / norm * tables[2]
+    fr = _dft_inverse(s_re * gain, s_im * gain, tables, inv) * window
+    y = overlap_add(fr, cfg.hop_length) * inv_env
+    return (repad_edges(y, cfg, geo), torch.complex(s_re, s_im)), mag
+
+
+def admm_dft_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedGeometry,
+                  valid_t: int, precision="high"):
+    """One DR-ADMM iteration of the direct-DFT kernel's math in plain
+    PyTorch, the counterpart of the JAX ``admm_xla_twin``.
+
+    ``state = (x_pad (B, lp), Y (B, T, F) complex)``; returns ``((x_pad,
+    Y'), mag)`` with ``mag`` the pre-update ``|R|``; frames ``t >= valid_t``
+    get ``Y' = 0``, and the inverse transforms ``Y' * w``.  ``precision`` is
+    one scheme.  Like :func:`gl_dft_twin` it is the kernel's CPU path, its
+    check on the card and, at ``'highest'``, its backward.
+    """
+    x_pad, Y = state
+    tables = dft.table_tensors(cfg.n_fft, cfg.normalized, x_pad.device, x_pad.dtype)
+    frames = frame(x_pad, cfg.n_fft, cfg.hop_length) * window
+    r_re, r_im = _dft_forward(frames, tables, precision)
+    mag = torch.sqrt(r_re * r_re + r_im * r_im + 1e-30)
+    onep = 1.0 + rho  # true division, as the JAX kernels do
+    z_re = (rho * Y.real + r_re) / onep
+    z_im = (rho * Y.imag + r_im) / onep
+    u_re, u_im = Y.real - z_re, Y.imag - z_im
+    t_re, t_im = z_re - u_re, z_im - u_im
+    norm = torch.sqrt(t_re * t_re + t_im * t_im + 1e-30) + PROJ_EPS
+    gain = target / norm
+    yn_re, yn_im = t_re * gain + u_re, t_im * gain + u_im
+    if valid_t < yn_re.shape[-2]:
+        valid = (torch.arange(yn_re.shape[-2], device=yn_re.device) < valid_t)[:, None]
+        yn_re = torch.where(valid, yn_re, torch.zeros_like(yn_re))
+        yn_im = torch.where(valid, yn_im, torch.zeros_like(yn_im))
+    w = tables[2]
+    fr = _dft_inverse(yn_re * w, yn_im * w, tables, precision) * window
+    y = overlap_add(fr, cfg.hop_length) * inv_env
+    return (repad_edges(y, cfg, geo), torch.complex(yn_re, yn_im)), mag
 
 
 class RTISIWindows(NamedTuple):

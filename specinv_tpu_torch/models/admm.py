@@ -9,7 +9,7 @@ order:
 with ``rho = 1`` behaving like Griffin-Lim, and the pre-projection magnitude
 ``|R|`` as the metric / stop-criterion output.
 
-Two backends, chosen as in ``griffin_lim`` (``resolve_backend``):
+Three backends, chosen as in ``griffin_lim`` (``resolve_backend``):
 
 * ``'kernel'``: the hand-written CUDA whole-run kernel
   (``ops/cuda/admm_fullrun``), the counterpart of the JAX ``pallas4`` path
@@ -17,10 +17,16 @@ Two backends, chosen as in ``griffin_lim`` (``resolve_backend``):
   reduction of the chain: since ``Y = X + U``, ``U' = U + X - Z = Y - Z`` and
   only ``Y`` persists.  On the card it computes in float32; on a CPU tensor
   it runs the kernel's plain version in the input's precision.
+* ``'dft'``: the hand-written CUDA direct-DFT iteration kernel on the
+  tensor cores (``ops/cuda/admm_fused``) in the same DR form, one launch per
+  iteration, the counterpart of the JAX ``pallas`` path (``run_tm_pallas``).
+  It takes one precision tier of ``ops/dft.py`` for both products.  The
+  JAX kernel hands ``precision`` to every product whole: a pair holding a
+  scheme string raises there (``lax.dot_general`` refuses it), and a pair
+  of two ``lax.Precision`` values becomes per-operand precisions, which
+  have no counterpart here, so the port raises for every pair.
 * ``'fft'``: the literal ``(X, Y, U, x)`` chain on ``torch.fft``
   (``run_tm``), the parity anchor and the speed baseline on the card.
-
-The JAX ``'pallas'`` backend (direct-DFT ADMM) has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import STFTConfig
-from ..ops.cuda import admm_fullrun
+from ..ops import dft
+from ..ops.cuda import admm_fullrun, admm_fused
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
 from ..utils.runner import iterate
@@ -118,8 +125,40 @@ def run_tm_kernel(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     )
 
 
+def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
+               max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
+               verbose: bool = False, mode: str = "fori", early_stop: bool = True,
+               remat: bool = False, precision="high") -> torch.Tensor:
+    """ADMM through the direct-DFT iteration kernel in the DR form (float32),
+    the counterpart of the JAX ``admm.run_tm_pallas``: target (B, T, F) ->
+    (B, L).  One launch per iteration under ``utils/runner.iterate``, the
+    magnitude plane as the eval output; ``mode`` is honoured (JAX pins
+    ``'fori'``; the two give the same result).  ``Y0`` is the seed (``U0 =
+    0``), every frame valid.
+    """
+    T = target_tm.shape[-2]
+    geo = make_geometry(cfg, T)
+    win32 = window.float()
+    inv_env = make_inv_env(cfg, win32, T, geo)
+    target = target_tm.float().contiguous()
+    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
+    with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
+
+    def step_fn(state):
+        x, mag, y = admm_fused.fused_admm_iteration(
+            state[0], state[1], target, win32, inv_env, rho, cfg, T, precision, with_mag)
+        return (x, y), mag
+
+    state = iterate(
+        step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
+        tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        early_stop=early_stop, remat=remat,
+    )
+    return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
+
+
 def _full_run(spec_b3, window, rho, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat):
+              verbose, mode, backend, early_stop, remat, precision=None):
     """Layout transpose + phase seed + loop."""
     if spec_b3.dtype in (torch.bfloat16, torch.float16):
         spec_b3 = spec_b3.float()
@@ -128,6 +167,12 @@ def _full_run(spec_b3, window, rho, tol, cfg, max_iter, eva_iter, metric,
         cmplx_tm, target_tm = spec_tm, spec_tm.abs()
     else:
         cmplx_tm, target_tm = phase_init_tm(spec_tm, cfg), spec_tm
+    if backend == "dft":
+        return run_tm_dft(
+            target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
+            eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+            early_stop=early_stop, remat=remat, precision=precision,
+        )
     run = run_tm_kernel if backend == "kernel" else run_tm
     return run(
         target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
@@ -157,21 +202,24 @@ def ADMM(
     Accepts a magnitude or complex spectrogram ``(F, T)``/``(B, F, T)`` (a
     tensor on any device, or an array) plus the torch.stft kwarg space, and
     returns the waveform ``(L,)``/``(B, L)`` on the same device.  ``mode``,
-    ``backend`` ('auto'/'kernel'/'fft'), ``precision`` and ``remat`` as on
-    :func:`griffin_lim`; ``loss_psum_axes`` and ``pack`` must stay unset.
+    ``backend`` ('auto'/'kernel'/'dft'/'fft'), ``precision`` and ``remat``
+    as on :func:`griffin_lim`, except that ``'dft'`` takes one precision
+    tier, not a ``(forward, inverse)`` pair (see the module docstring);
+    ``loss_psum_axes`` and ``pack`` must stay unset.
     """
     if not (eva_iter > 0 and max_iter > 0 and tol >= 0):
         raise ValueError(
             f"need eva_iter > 0, max_iter > 0 and tol >= 0 "
             f"(got {eva_iter}, {max_iter}, {tol})"
         )
-    check_args(stft_kwargs, precision, loss_psum_axes, pack)
+    check_args(stft_kwargs, loss_psum_axes, pack)
     spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-    backend = resolve_backend(backend, cfg, window, spec_b3.device)
+    backend = resolve_backend(backend, cfg, window, spec_b3.device, spec_b3.is_complex())
+    precision = dft.check_precision(precision, backend)
     x = _full_run(
         spec_b3, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,
         metric=metric, verbose=verbose, mode=mode, backend=backend,
-        early_stop=bool(tol > 0), remat=remat,
+        early_stop=bool(tol > 0), remat=remat, precision=precision,
     )
     return restore_output(x, was_2d)
 

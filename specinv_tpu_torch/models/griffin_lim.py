@@ -5,7 +5,7 @@ numerics: momentum factor ``lr = alpha / (1 + alpha)``, projection epsilon
 ``1e-16``, the pre-momentum magnitude as the metric / stop-criterion output,
 and the window^2-envelope ISTFT normalization.
 
-Two backends:
+Three backends:
 
 * ``'kernel'``: the hand-written CUDA whole-run kernel
   (``ops/cuda/gl_fullrun``), the counterpart of the JAX ``pallas4`` path
@@ -13,18 +13,28 @@ Two backends:
   kernel launches; with ``tol > 0`` the run is eval segments of ``eva_iter``
   iterations that emit two reduced sums, then an eval-free tail.  On a CPU
   tensor it runs the kernel's plain version.
+* ``'dft'``: the hand-written CUDA direct-DFT iteration kernel on the
+  tensor cores (``ops/cuda/gl_fused``), one launch per iteration, the
+  counterpart of the JAX ``pallas`` path (``run_tm_pallas``).  It takes the
+  precision tiers ``'default'``/``'high'``/``'highest'``/``'bf16x2'``/
+  ``'bf16x2t'`` and ``(forward, inverse)`` pairs (``ops/dft.py``); on a CPU
+  tensor it runs the kernel's plain version.
 * ``'fft'``: the per-iteration ``torch.fft`` path (``run_tm``), the JAX
   ``fft`` backend's counterpart and the speed baseline on the card.
 
-``'auto'`` picks the kernel for a CUDA tensor whose config the kernel takes
-(decided from the config before any launch), otherwise ``'fft'``.
+``'auto'`` on a CUDA tensor takes the first that applies, as the JAX order
+pallas4 -> pallas -> XLA: ``'kernel'`` where its config check passes,
+``'dft'`` where the direct-DFT kernel takes the config and the spectrogram
+is real, else ``'fft'`` (decided from the config before any launch).  On
+the CPU ``'auto'`` is ``'fft'``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import STFT_KWARG_NAMES, STFTConfig
-from ..ops.cuda import gl_fullrun
+from ..ops import dft
+from ..ops.cuda import _dft, gl_fullrun, gl_fused
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
 from ..utils.runner import iterate, stop_loss_fn
@@ -32,7 +42,7 @@ from ._kernel_driver import PROJ_EPS, make_geometry, make_inv_env, run_kernel_lo
 from .common import prepare_spec_b3, restore_output
 from .phase_init import phase_init_tm
 
-BACKENDS = ("auto", "kernel", "fft")
+BACKENDS = ("auto", "kernel", "dft", "fft")
 
 
 def magnitude_project(spec: torch.Tensor, target_mag: torch.Tensor) -> torch.Tensor:
@@ -100,8 +110,41 @@ def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     )
 
 
+def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
+               max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
+               verbose: bool = False, mode: str = "fori", early_stop: bool = True,
+               remat: bool = False, precision="high") -> torch.Tensor:
+    """Griffin-Lim through the direct-DFT iteration kernel (float32), the
+    counterpart of the JAX ``run_tm_pallas``: target (B, T, F) -> (B, L).
+
+    One kernel launch per iteration under ``utils/runner.iterate``, with the
+    magnitude plane as the eval output (written only when a run evaluates).
+    JAX pins ``mode='fori'`` here; the port's two modes give the same
+    result, so ``mode`` is honoured.
+    """
+    T = target_tm.shape[-2]
+    geo = make_geometry(cfg, T)
+    win32 = window.float()
+    inv_env = make_inv_env(cfg, win32, T, geo)
+    target = target_tm.float().contiguous()
+    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
+    with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
+
+    def step_fn(state):
+        x, mag, pre = gl_fused.fused_gl_iteration(
+            state[0], state[1], target, win32, inv_env, lr, cfg, precision, with_mag)
+        return (x, pre), mag
+
+    state = iterate(
+        step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
+        tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+        early_stop=early_stop, remat=remat,
+    )
+    return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
+
+
 def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat):
+              verbose, mode, backend, early_stop, remat, precision=None):
     """Layout transpose + phase seed + loop."""
     if spec_b3.dtype in (torch.bfloat16, torch.float16):
         spec_b3 = spec_b3.float()
@@ -110,6 +153,12 @@ def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
         cmplx_tm, target_tm = spec_tm, spec_tm.abs()
     else:
         cmplx_tm, target_tm = phase_init_tm(spec_tm, cfg), spec_tm
+    if backend == "dft":
+        return run_tm_dft(
+            target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
+            eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+            early_stop=early_stop, remat=remat, precision=precision,
+        )
     run = run_tm_kernel if backend == "kernel" else run_tm
     return run(
         target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
@@ -118,44 +167,45 @@ def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
     )
 
 
-def resolve_backend(backend: str, cfg: STFTConfig, window, device) -> str:
-    """``'auto'`` -> ``'kernel'`` on CUDA when the whole-run kernels take
-    ``cfg`` (decided from the config, before any launch), else ``'fft'``.
-    Shared by ``griffin_lim`` and ``ADMM``."""
+def resolve_backend(backend: str, cfg: STFTConfig, window, device,
+                    is_complex: bool = False) -> str:
+    """``'auto'`` on CUDA -> ``'kernel'`` when the whole-run kernels take
+    ``cfg``, else ``'dft'`` when the direct-DFT kernels take it and the
+    spectrogram is real (``is_complex`` False), else ``'fft'``; on the CPU
+    ``'fft'``.  Decided from the config, before any launch.  Shared by
+    ``griffin_lim`` and ``ADMM``."""
+    if backend in ("pallas", "pallas4"):
+        raise ValueError(
+            f"backend {backend!r} is a TPU kernel; the port's counterparts are 'dft' "
+            "(JAX 'pallas') and 'kernel' (JAX 'pallas4')")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    ok = gl_fullrun.supports(cfg, window)
+    ok, dft_ok = gl_fullrun.supports(cfg, window), _dft.supports(cfg, window)
     if backend == "auto":
-        return "kernel" if device.type == "cuda" and ok else "fft"
+        if device.type != "cuda":
+            return "fft"
+        return "kernel" if ok else ("dft" if dft_ok and not is_complex else "fft")
     if backend == "kernel" and not ok:
         raise ValueError(
             f"the kernel backend needs {gl_fullrun.UNSUPPORTED}; use backend='auto' instead"
         )
+    if backend == "dft" and not dft_ok:
+        raise ValueError(
+            f"the dft backend needs {_dft.UNSUPPORTED}; use backend='auto' instead"
+        )
     return backend
 
 
-def check_args(stft_kwargs, precision, loss_psum_axes, pack) -> None:
-    """The argument checks ``griffin_lim`` and ``ADMM`` share.
-
-    Both backends compute in float32/float64 on the CUDA cores, the
-    counterpart of the JAX ``HIGHEST``; ``'high'`` (bf16x3 on the TPU, about
-    float32 accuracy) maps there too.  ``loss_psum_axes`` belongs to the
-    parallel wrappers and ``pack`` to the TPU kernel's grid; neither has a
-    counterpart here."""
+def check_args(stft_kwargs, loss_psum_axes, pack) -> None:
+    """The backend-free argument checks ``griffin_lim`` and ``ADMM`` share.
+    ``loss_psum_axes`` belongs to the parallel wrappers and ``pack`` to the
+    TPU kernel's grid; neither has a counterpart here."""
     unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
     if unknown:
         raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
     if pack is not None:
         raise ValueError("pack folds clips into TPU grid steps; the port has no such option")
     stop_loss_fn(loss_psum_axes)
-    if precision is None or (
-        isinstance(precision, str) and precision.lower() in ("high", "highest")
-    ):
-        return
-    raise ValueError(
-        f"precision {precision!r} is not supported: the port computes in full "
-        "float32 (pass None, 'high' or 'highest')"
-    )
 
 
 def griffin_lim(
@@ -180,7 +230,9 @@ def griffin_lim(
     tensor on any device, or an array) plus the torch.stft kwarg space, and
     returns the waveform ``(L,)``/``(B, L)`` on the same device.  ``mode``
     ('fori' keeps the stop decision on the device, 'while' leaves the loop
-    at the stop), ``backend`` ('auto'/'kernel'/'fft') and ``remat``
+    at the stop), ``backend`` ('auto'/'kernel'/'dft'/'fft'), ``precision``
+    (a tier of ``ops/dft.py`` or a ``(forward, inverse)`` pair on
+    ``'dft'``; None, 'high' or 'highest' elsewhere) and ``remat``
     (recompute each iteration in the backward pass) as in the JAX package.
     ``loss_psum_axes`` belongs to the parallel wrappers and ``pack`` to the
     TPU kernel's grid; neither has a counterpart here, so both must stay
@@ -188,12 +240,13 @@ def griffin_lim(
     """
     if alpha < 0:
         raise ValueError(f"alpha must be >= 0, got {alpha}")
-    check_args(stft_kwargs, precision, loss_psum_axes, pack)
+    check_args(stft_kwargs, loss_psum_axes, pack)
     spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-    backend = resolve_backend(backend, cfg, window, spec_b3.device)
+    backend = resolve_backend(backend, cfg, window, spec_b3.device, spec_b3.is_complex())
+    precision = dft.check_precision(precision, backend)
     x = _full_run(
         spec_b3, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,
         eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        backend=backend, early_stop=bool(tol > 0), remat=remat,
+        backend=backend, early_stop=bool(tol > 0), remat=remat, precision=precision,
     )
     return restore_output(x, was_2d)

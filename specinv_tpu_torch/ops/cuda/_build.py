@@ -46,6 +46,21 @@ _SIGNATURES = {
         _F, _F, _F, _I,                           # rho fscale iscale valid_t
         _P,                                       # stream
     ],
+    "specinv_gl_dft_iteration": [
+        *[_P] * 17,                               # x_in x_out st_in st_out target window w
+                                                  # cos sin cos_hi cos_lo sin_hi sin_lo
+                                                  # inv_env spec frames mag
+        *[_I] * 11,                               # B T n hop n_bins lp p_amt e pad_mode
+                                                  # fwd_scheme inv_scheme
+        _F,                                       # lr
+        _P,                                       # stream
+    ],
+    "specinv_admm_dft_iteration": [
+        *[_P] * 17,                               # as specinv_gl_dft_iteration
+        *[_I] * 11,
+        _F, _I,                                   # rho valid_t
+        _P,                                       # stream
+    ],
     "specinv_rtisi_steps": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P,       # keep upd pre target window awf awr synth tw
         _P, _P, _P,                               # com xk xs

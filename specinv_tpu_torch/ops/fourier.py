@@ -5,6 +5,14 @@ Counterpart of the ``fft`` backend of ``specinv_tpu/ops/fourier.py``: frames
 ``normalized`` as ``norm='ortho'``.  The JAX package's matmul and four-step
 DFT backends and its measured crossover policy are TPU lowerings and are not
 part of the port; ``'auto'`` is ``'fft'`` here.
+
+The library-wide precision knob (:func:`default_precision`,
+:func:`set_default_precision`) is the JAX package's, with the values
+``'default'`` (one bf16 pass), ``'high'`` (three bf16 passes, the default)
+and ``'highest'`` (float32).  In the port it governs only the direct-DFT
+backend ``'dft'`` of ``griffin_lim`` and ``ADMM`` (``ops/dft.py``); the
+transforms here and the ``'kernel'`` and ``'fft'`` backends always compute
+in the input's precision.
 """
 from __future__ import annotations
 
@@ -13,6 +21,23 @@ import torch
 from ..config import STFTConfig
 
 VALID_DFT_BACKENDS = ("auto", "fft")
+PRECISIONS = ("default", "high", "highest")
+
+_DEFAULT_PRECISION = "high"
+
+
+def set_default_precision(p: str) -> None:
+    """Set the default precision of the direct-DFT backend: one of
+    'default' | 'high' | 'highest' (any case)."""
+    global _DEFAULT_PRECISION
+    name = str(p).lower()
+    if name not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {p!r}")
+    _DEFAULT_PRECISION = name
+
+
+def default_precision() -> str:
+    return _DEFAULT_PRECISION
 
 
 def resolve_backend(backend: str) -> str:

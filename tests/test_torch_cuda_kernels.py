@@ -21,7 +21,7 @@ from specinv_tpu_torch.config import canonicalize
 from specinv_tpu_torch.models import _kernel_driver as kd
 from specinv_tpu_torch.models.phase_init import phase_init_tm
 from specinv_tpu_torch.ops import stft as stft_ops
-from specinv_tpu_torch.ops.cuda import admm_fullrun, gl_fullrun, rtisi_fused
+from specinv_tpu_torch.ops.cuda import admm_fullrun, admm_fused, gl_fullrun, gl_fused, rtisi_fused
 from specinv_tpu_torch.ops.framing import pad_center
 from specinv_tpu_torch.utils.corpus import make_speech_like
 
@@ -44,11 +44,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _state(dev, n_fft=512, hop=128):
-    """A 2-clip speech-like starting state (SPSI seed, x0 = istft(seed))."""
+def _state(dev, n_fft=512, hop=128, batch=2):
+    """A speech-like starting state of ``batch`` clips (SPSI seed, x0 =
+    istft(seed))."""
     win_np = torch.hann_window(n_fft).numpy()
     cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=win_np, hop_length=hop)
-    clips = np.stack([make_speech_like(7800, seed=s) for s in range(2)]).astype(np.float32)
+    clips = np.stack([make_speech_like(7800, seed=s) for s in range(batch)]).astype(np.float32)
     win = torch.from_numpy(w).to(dev)
     mag = stft_ops.stft(torch.from_numpy(clips).to(dev), cfg, win).abs().contiguous()
     seed = phase_init_tm(mag, cfg).to(torch.complex64)
@@ -85,6 +86,80 @@ def test_kernel_matches_plain_version(dev, name):
     torch.cuda.synchronize()
     assert mod.launches - before == 5
     assert float((x - ref).abs().max() / ref.abs().max()) <= x_limit
+
+
+# The direct-DFT kernels: (module, wrapper, scalar, extra arguments, limits
+# per tier of x / |S| / state after one iteration relative to the max; the
+# limits of chip_smoke.py, from a float64 run of the plain version)
+DFT_KERNELS = {
+    "gl_fused": (gl_fused, "fused_gl_iteration", 0.99 / 1.99, (), {
+        "high": (5e-5, 8e-6, 2e-5), "highest": (2e-5, 4e-6, 7e-6),
+        "bf16x2t": (2e-4, 7e-6, 2e-5)}),
+    "admm_fused": (admm_fused, "fused_admm_iteration", 0.1, (0,), {
+        "high": (6e-5, 8e-6, 2e-4), "highest": (2e-5, 4e-6, 6e-5),
+        "bf16x2t": (2e-5, 7e-6, 6e-5)}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+@pytest.mark.parametrize("precision", ["high", "highest", "bf16x2t"])
+def test_dft_kernel_matches_plain_version_at_c7(dev, name, precision):
+    """One iteration at n_fft 400 / hop 160 (ROADMAP cell C7: no power of
+    two, no multiple of 16 in n_fft or F = 201)."""
+    mod, run, scalar, extra, limits = DFT_KERNELS[name]
+    cfg, state = _state(dev, 400, 160)
+    before = mod.launches
+    ours = getattr(mod, run)(*state, scalar, cfg, *extra, precision=precision)
+    ref = getattr(mod, f"{run}_reference")(*state, scalar, cfg, *extra, precision=precision)
+    torch.cuda.synchronize()
+    assert mod.launches - before == 1
+
+    def err(a, b):
+        a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+        return float((a - b).abs().max() / b.abs().max())
+
+    for u, v, limit in zip(ours, ref, limits[precision]):
+        assert err(u, v) <= limit
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+def test_dft_state_does_not_depend_on_the_mag_output(dev, name):
+    """The state and the signal are bitwise equal with the magnitude output
+    on and off (the middle's products and sums are rounded one by one)."""
+    mod, run, scalar, extra, _ = DFT_KERNELS[name]
+    cfg, (x, s, tgt, win, env) = _state(dev)
+    fn = getattr(mod, run)
+    a, b = (x, s), (x, s)
+    for _ in range(5):
+        xa, mag, sa = fn(*a, tgt, win, env, scalar, cfg, *extra, with_mag=True)
+        xb, none, sb = fn(*b, tgt, win, env, scalar, cfg, *extra, with_mag=False)
+        a, b = (xa, sa), (xb, sb)
+    torch.cuda.synchronize()
+    assert none is None and mag is not None
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+def test_dft_batch_equals_single_clips(dev, name):
+    """A batch of 3 clips gives each clip the bits it gets alone: one
+    iteration of the kernel, and the whole 'dft' path of griffin_lim / ADMM
+    from a complex spectrogram (no phase seed)."""
+    mod, run, scalar, extra, _ = DFT_KERNELS[name]
+    cfg, (x, s, tgt, win, env) = _state(dev, batch=3)
+    fn = getattr(mod, run)
+    whole = fn(x, s, tgt, win, env, scalar, cfg, *extra)
+    for b in range(3):
+        one = fn(x[b : b + 1], s[b : b + 1], tgt[b : b + 1], win, env, scalar, cfg, *extra)
+        assert all(torch.equal(u[b : b + 1], v) for u, v in zip(whole, one))
+    algo = st.griffin_lim if name == "gl_fused" else st.ADMM
+    spec = torch.polar(tgt, torch.angle(s)).transpose(-1, -2).contiguous()  # (B, F, T)
+    kw = dict(max_iter=10, tol=0.0, backend="dft", hop_length=128, window=win, verbose=False)
+    before = mod.launches
+    y3 = algo(spec, **kw)
+    ys = [algo(spec[b : b + 1], **kw) for b in range(3)]
+    torch.cuda.synchronize()
+    assert mod.launches - before == 40
+    assert all(torch.equal(y3[b : b + 1], ys[b]) for b in range(3))
 
 
 def _rtisi_input(dev, batch, seconds):

@@ -175,7 +175,16 @@ def test_backend_dispatch():
     assert tgl.resolve_backend("auto", cfg, win, torch.device("cuda")) == "kernel"
     assert tgl.resolve_backend("auto", cfg, win, torch.device("cpu")) == "fft"
     odd, w2 = canonicalize(201, np.float32, hop_length=100)
-    assert tgl.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda")) == "fft"
+    # n_fft 400: no whole-run kernel, so the direct-DFT kernel (JAX: pallas4 -> pallas)
+    assert tgl.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda")) == "dft"
+    # ... but not for a complex spectrogram, a two-sided config or a complex window
+    assert tgl.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda"),
+                               is_complex=True) == "fft"
+    two, w3 = canonicalize(400, np.float32, hop_length=100, onesided=False)
+    assert tgl.resolve_backend("auto", two, torch.from_numpy(w3), torch.device("cuda")) == "fft"
+    cwin = np.hanning(401)[:-1].astype(np.complex64)
+    cplx, w4 = canonicalize(400, np.float32, hop_length=100, window=cwin)
+    assert tgl.resolve_backend("auto", cplx, torch.from_numpy(w4), torch.device("cuda")) == "fft"
     with pytest.raises(ValueError):
         tgl.resolve_backend("kernel", odd, torch.from_numpy(w2), torch.device("cuda"))
     with pytest.raises(ValueError):
