@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: Griffin-Lim
 (config 1) and ADMM (config 2) through the whole-run kernels and through the
-direct-DFT kernels, Griffin-Lim at n_fft 400 / hop 160 through 'auto', and
-RTISI-LA offline and streaming (config 3).
+direct-DFT kernels, Griffin-Lim at n_fft 400 / hop 160 through 'auto',
+RTISI-LA offline and streaming (config 3), and the parallel layer: the
+sequence-parallel Griffin-Lim and ADMM on a 10-minute clip at world size 1
+and 2, and batched Griffin-Lim over 256 clips at world size 2.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card, ``nvcc`` and no network, and fails (nonzero exit, no result line)
@@ -27,7 +29,12 @@ without them.  Phases, each of which raises on failure:
    config 3 (batch 1 and 16) and at small geometries (batch 2), each step
    a one-step launch from the plain version's state beside a float64 run
    of the plain step, and a launch of 8 steps bit for bit against 8
-   one-step launches;
+   one-step launches; the raw per-iteration dispatch of the whole-run
+   kernels (the port of ``gl_fused4._kernel`` and
+   ``admm_fused4._kernel_iter``) at the world-1 shape of the 10-minute clip
+   (25843 frames, ``valid_t`` 25840), at its world-2 shards (12922 frames;
+   ADMM with ``valid_t`` of all, 12918 and 0 frames) and on the small set
+   with hop 384, 1 and 5 launches beside a float64 plain run;
 4. the main paths, each on a 10 s speech-like clip (22.05 kHz, hann, n_fft
    2048, hop 512), with the launch counts set to 0 just before and read
    just after, and the final spectral convergence held against the
@@ -40,7 +47,18 @@ without them.  Phases, each of which raises on failure:
    hop 160, which must launch ``gl_fused`` and nothing else;
    ``specinv_tpu_torch.RTISI_LA`` (look-ahead 3, 25 refinements: 55
    launches), then ``RTISIStreamer`` over the same frames (434 launches, the
-   offline path's committed frames bit for bit);
+   offline path's committed frames bit for bit); then on a 10-minute clip
+   (utils/corpus seed 0, 25840 frames, made with the 256 clips below in
+   worker processes during phases 2-3) ``parallel.griffin_lim_seq`` and
+   ``admm_seq`` (``'auto'``: one raw launch per iteration, exactly 100, and
+   no other kernel), tol 0 and tol 1e-6, at world size 1 in this process
+   and at world size 2 in two spawned processes on ``cuda:0`` over gloo (a
+   file store under ``build/``; the kernels are built before the spawn),
+   world 1 held against the unsharded whole-run call and world 2 against
+   world 1 after 5 iterations, and every final SC against a float64 seq
+   run; ``batched(griffin_lim)`` at world size 2 over 256 ten-second clips
+   bit for bit against one unsharded call, and with ``global_stop`` stopping
+   on the unsharded call's iteration;
 5. marginal microseconds per iteration of the kernel, 'dft' ('high' and
    'highest') and ``torch.fft`` paths of GL and ADMM, and of the 'dft' and
    ``torch.fft`` paths at 400/160, from CUDA events, by differencing 200 and
@@ -49,7 +67,10 @@ without them.  Phases, each of which raises on failure:
    the port never calls); RTISI-LA microseconds per output frame of both
    paths at batch 1 and 16 (a 10 s against a 5 s clip), microseconds per
    streamer push, and the RTISI kernel against its plain version per
-   launch.
+   launch; the seq paths' marginal microseconds per iteration (kernel, fft,
+   world 1 and 2; world 2 time-shares the card, so it is the exchange's
+   cost), the batched rate, and one raw launch at the world-1 shape and at
+   the shard against its plain version.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object with each kernel's launches, error, times and bound;
@@ -57,16 +78,21 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib
 import json
+import multiprocessing as mp
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# Clips made in the background, the two ranks' file store and results.
+SMOKE_DIR = ROOT / "build" / "chip_smoke"
 
 N_FFT, HOP, N_SAMPLES = 2048, 512, 220500  # 10 s at 22.05 kHz
 MAIN_ITERS = 100
@@ -210,6 +236,91 @@ C7_N_FFT, C7_HOP = 400, 160
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 # bf16 tensor-core passes of each direct-DFT tier ('highest' is float32)
 DFT_PASSES = {"default": 1, "high": 3, "bf16x2": 2, "bf16x2t": 2, "highest": 1}
+
+
+# The sequence-parallel main path: a 10-minute speech-like clip
+# (utils/corpus, seed 0) at config 1's widths, 25840 frames, split over 2
+# shards of 12922 frames; and batched Griffin-Lim over 256 ten-second clips
+# (seeds 0-255, BASELINE config 5's batch at n_fft 2048) over 2 ranks.
+SEQ_SAMPLES, SEQ_FRAMES, SEQ_SHARDS, SEQ_SHARD_FRAMES = 13_230_000, 25840, 2, 12922
+SEQ_W1_FRAMES = 25843  # world 1: T padded by ceil(n_fft / hop) - 1 frames
+BATCH_CLIPS, CLIP_CHUNK = 256, 43
+# The raw Griffin-Lim dispatch against its plain version at the seq shard
+# (12922 frames), 5 launches chained through the envelope divide: there the
+# plain float32 version drifts from a float64 run faster than at config 1
+# (on an H100 80GB HBM3, 700 W, after 5 launches, kernel / plain from
+# float64: x 2.7e-5 / 1.7e-4, state 9.5e-5 / 6.3e-4, |S| 4.8e-5 / 3.1e-4).
+# Twice the sum, rounded up to one digit; the eval sums keep SUM_LIMIT.  The
+# ADMM readings lie inside ADMM_X_LIMIT / ADMM_PLANE_LIMIT.
+RAW_GL_LIMITS = (4e-4, 2e-3, 1e-4)
+# The same at the world-1 shape (the whole clip in one launch, 25843 frames,
+# valid_t 25840), 5 launches, kernel / plain from float64 on the same card:
+# GL x 3.8e-5 / 1.7e-4, state 9.5e-5 / 6.3e-4, |S| 4.8e-5 / 3.1e-4; ADMM x
+# 3.4e-5 / 1.2e-4, state 2.6e-4 / 9.1e-4, |S| 8.4e-5 / 3.9e-5.  Twice the
+# sum, rounded up to one digit; the eval sums (read 1.9e-7) keep SUM_LIMIT
+# and ADMM_SUM_LIMIT.
+RAW_W1_GL_LIMITS = (5e-4, 2e-3, 1e-4)
+RAW_W1_ADMM_LIMITS = (4e-4, 3e-3, 2e-5)
+# World 2 against world 1 after FEW_ITERS iterations (x, relative to the
+# max): both start from the same window bits (seq_window), so they differ
+# only in the float32 order of the sums at the shard boundary and are held
+# at the raw dispatch's limits after 5 launches (Griffin-Lim, ADMM).  After
+# 100 iterations the seq runs are held by SC: each float32 seq run (worlds
+# 1 and 2, tol 0 and 1e-6) and the unsharded call against the float64 seq
+# run (fft path) of the same call.  The bands are twice the sum of the two
+# worlds' distances from float64 in the first reading on an H100 80GB HBM3,
+# 700 W, rounded up to one digit: Griffin-Lim 0.0547 (world 1) and 0.0287
+# dB (world 2), ADMM 0.2833 and 0.5998 dB, world 2 then started from a
+# window made on the card (1.5 of the max from world 1 after 5 iterations).
+# With one window: Griffin-Lim 0.0547 dB in both worlds and unsharded, ADMM
+# 0.2833, 0.2838 and 0.2771 dB; world 2 2.0e-7 (GL) and 4.9e-7 (ADMM) of
+# the max from world 1 after 5 iterations.
+SEQ_X_LIMITS = {"griffin_lim_seq": 4e-4, "admm_seq": 2e-3}
+# World 1 against the unsharded whole-run call after FEW_ITERS iterations
+# (x, relative to the max): the same kernel on the same frames, apart from
+# the envelope divide (PyTorch's y / env against the kernel's y * (1 / env))
+# and the seq path's 3 padding frames (zero target, inert), so they are held
+# at the world-1 raw dispatch's x limit after 5 launches; read 2.0e-5 (GL)
+# and 1.5e-4 (ADMM) on the same card.  A float64 seq run cannot anchor this:
+# its own SPSI seed starts 1.3 of the max away after 5 iterations.
+SEQ_WHOLE_LIMITS = {"griffin_lim_seq": RAW_W1_GL_LIMITS[0], "admm_seq": RAW_W1_ADMM_LIMITS[0]}
+SEQ_SC_BAND_DB, SEQ_ADMM_SC_BAND_DB = 0.2, 2.0
+# The launch counters of the port's kernel wrappers (module, attribute).
+COUNTERS = (("gl_fullrun", "launches"), ("gl_fullrun", "iteration_launches"),
+            ("admm_fullrun", "launches"), ("admm_fullrun", "iteration_launches"),
+            ("fft", "launches"), ("rtisi_fused", "launches"), ("gl_fused", "launches"),
+            ("admm_fused", "launches"))
+
+
+def _kernel_module(name: str):
+    return importlib.import_module(f"specinv_tpu_torch.ops.cuda.{name}")
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS:
+        setattr(_kernel_module(mod), attr, 0)
+
+
+def read_counts() -> dict:
+    return {f"{mod}.{attr}": getattr(_kernel_module(mod), attr) for mod, attr in COUNTERS}
+
+
+def check_counts(label: str, expected: dict) -> None:
+    """Every counter 0 except those of ``expected``, which must match."""
+    got = read_counts()
+    if got != {key: expected.get(key, 0) for key in got}:
+        raise AssertionError(f"{label}: launches {({k: v for k, v in got.items() if v})}, "
+                             f"expected {expected}")
+
+
+def make_clips(path: str, n_samples: int, seeds) -> str:
+    """Speech-like clips of ``seeds`` (float32) saved to ``path``: run in a
+    worker process while the card checks the kernels."""
+    from specinv_tpu_torch.utils.corpus import make_speech_like
+
+    np.save(path, np.stack([make_speech_like(n_samples, seed=s) for s in seeds])
+            .astype(np.float32))
+    return path
 
 
 def smi_line() -> str:
@@ -448,6 +559,212 @@ def check_dft(label, mod, run, scalar, cfg, state, precision, extra, limits, n_i
     return x_err, readings
 
 
+def seq_shard_state(mag, cfg, win, shard, n=SEQ_SHARDS):
+    """Shard ``shard`` of ``n``'s starting state as ``parallel/seq`` builds
+    it from ``mag (B, T, F)``: the signal with its right halo ``(B, C +
+    H)``, the SPSI-seeded plane and the target rows ``(B, Ts, F)``, and the
+    shard's true-frame count."""
+    import torch.nn.functional as F
+
+    from specinv_tpu_torch.models.phase_init import phase_init_tm
+    from specinv_tpu_torch.ops import stft as stft_ops
+    from specinv_tpu_torch.ops.framing import pad_center
+    from specinv_tpu_torch.parallel.seq import _geometry
+
+    T = mag.shape[-2]
+    Ts, T_pad, C, H, Lp, *_ = _geometry(cfg, T, n)
+    seed = phase_init_tm(mag, cfg).to(torch.complex64)
+    x_pad = F.pad(pad_center(stft_ops.istft(seed, cfg, win), cfg), (0, n * C + H - Lp))
+    rows = slice(shard * Ts, (shard + 1) * Ts)
+
+    def plane(a):
+        return F.pad(a, (0, 0, 0, T_pad - T))[:, rows].contiguous()
+
+    state = (x_pad[:, shard * C : shard * C + C + H].contiguous(), plane(seed), plane(mag), win)
+    return state, min(max(T - shard * Ts, 0), Ts)
+
+
+def check_raw(label, mod, run, scalar, cfg, state, valid, n_iters, limits):
+    """``n_iters`` raw launches of ``mod.<run>``, each followed by the
+    envelope divide of the seq path, against the plain
+    version in float32 and beside a float64 plain run (the anchor), from
+    ``state = (x, plane, target, window)``; checked after 1 and ``n_iters``
+    launches at ``limits = (x, planes, eval sums)``.  Returns the max abs
+    error of x."""
+    from specinv_tpu_torch.models import _kernel_driver as kd
+
+    fn, ref_fn = getattr(mod, run), getattr(mod, f"{run}_reference")
+    x, plane, tgt, win = state
+    inv = kd.make_inv_env(cfg, win, tgt.shape[-2], kd.raw_geometry(cfg, tgt.shape[-2]))
+    # the first and last n_fft - hop samples lack the frames a neighbour
+    # shard adds; under a tapered window their envelope falls to ~1e-6, and
+    # dividing by it would amplify rounding 1e5 times: they start the next
+    # launch at 0
+    h, lp = cfg.n_fft - cfg.hop_length, inv.shape[-1]
+    inv[:h] = 0
+    inv[lp - h:] = 0
+    flags = dict(with_mag=True, with_loss=True, valid_t=valid)
+    tgt64, win64, inv64 = wide(tgt), wide(win), wide(inv)
+    k = p = (x, plane)
+    a = (wide(x), wide(plane))
+    x_err = 0.0
+
+    def rel(u, v):  # relative to the max of v; absolute where v is all zero (valid_t 0)
+        return rel64(u, v) if float(v.abs().max()) > 0 else float(u.abs().max())
+
+    for it in range(1, n_iters + 1):
+        kx, ks, km, kst = fn(*k, tgt, win, scalar, cfg, **flags)
+        px, ps, pm, pst = ref_fn(*p, tgt, win, scalar, cfg, **flags)
+        ax, as_, am, ast = ref_fn(*a, tgt64, win64, scalar, cfg, **flags)
+        if it in (1, n_iters):
+            torch.cuda.synchronize()
+            rows = [(rel(u, v), rel(u, w), rel(v, w))
+                    for u, v, w in ((kx, px, ax), (ks, ps, as_), (km, pm, am))]
+            print(f"  {label}, {it} it: " + "; ".join(
+                f"{q} {r[0]:.2e} (kernel/plain from float64 {r[1]:.2e}/{r[2]:.2e})"
+                for q, r in zip(("x", "state", "|S|"), rows)), flush=True)
+            for q, r, lim in zip(("x", "state", "|S|"), rows, (limits[0], *limits[1:2] * 2)):
+                check(f"{label} {q} after {it}", r[0], lim)
+            if bool(pst.any()):
+                check(f"{label} eval sums after {it}",
+                      float(((kst - pst).abs() / pst.abs()).max()), limits[2])
+            elif bool(kst.any()):
+                raise AssertionError(f"{label}: eval sums over no frame are not 0")
+            x_err = max(x_err, abs_err(kx, px))
+        k, p, a = (kx * inv, ks), (px * inv, ps), (ax * inv64, as_)
+    return x_err
+
+
+def run_seq(label, fn, spec, mesh, counter, **kw):
+    """One seq main-path call with every launch count set to 0 just before
+    and read just after: ``counter`` must show ``MAIN_ITERS`` launches and
+    every other counter none.  Returns the waveform and that count."""
+    reset_counts()
+    y = fn(spec, mesh, max_iter=MAIN_ITERS, **kw)
+    torch.cuda.synchronize()
+    launches = read_counts()[counter]
+    check_counts(label, {counter: MAIN_ITERS})
+    expected = (spec.shape[-1] - 1) * kw["hop_length"]
+    if y.shape != (expected,) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{label}: bad output {tuple(y.shape)}")
+    return y, launches
+
+
+def seq_us(fn, spec, mesh, kw, barrier=None):
+    """Marginal microseconds per iteration of a seq call: (t(100) -
+    t(50)) / 50 on the host clock, each call synchronised (and, across
+    ranks, started together)."""
+    t = {}
+    for n in (MAIN_ITERS, MAIN_ITERS // 2):
+        if barrier:
+            barrier()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn(spec, mesh, max_iter=n, **kw)
+        torch.cuda.synchronize()
+        t[n] = time.perf_counter() - start
+    return (t[MAIN_ITERS] - t[MAIN_ITERS // 2]) / (MAIN_ITERS - MAIN_ITERS // 2) * 1e6
+
+
+def seq_window(dev) -> torch.Tensor:
+    """The seq and batched phases' hann window, made on the host so that
+    every process has the same bits: a window computed on the card differs
+    from it in the last bit, and over the 10-minute clip's 25840 frames the
+    SPSI seed's cumulative phase turns such a difference into another
+    starting point."""
+    return torch.hann_window(N_FFT).to(dev)
+
+
+def load_magnitudes(paths, window):
+    """``|stft|`` of the clips saved at ``paths``, on the card: ``(B, F, T)``."""
+    import specinv_tpu_torch as st
+
+    x = torch.from_numpy(np.concatenate([np.load(p) for p in paths])).to(window.device)
+    return st.stft(x, N_FFT, hop_length=HOP, window=window).abs()
+
+
+SEQ_TOL = 1e-6          # the early-stopping seq runs (eva_iter 10)
+FEW_ITERS = 5           # world 2 against world 1, sample by sample
+GLOBAL_STOP_TOL = 5e-2  # the batched global-stop run: fires before 100 iterations
+
+
+def seq_rank(rank, world, store, clip_path, batch_paths):
+    """One of the two ranks of the world-2 phase, both on ``cuda:0`` over
+    gloo (a file store): the seq main path of both algorithms (launch
+    counts checked here, waveforms saved by rank 0), its times, then
+    ``batched(griffin_lim)`` over the 256 clips, held by rank 0 bit for bit
+    against one unsharded call, and a global-stop run whose stop iteration
+    (``mode='while'``: the launch count) rank 0 holds against the unsharded
+    call's.  A failed check raises, and the process exits nonzero."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    # a collective waits at most 3 minutes for a rank that failed
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=180))
+    try:
+        import specinv_tpu_torch as st
+        from specinv_tpu_torch.parallel import admm_seq, batched, griffin_lim_seq, make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        res = {}
+        mesh = make_mesh(seq=world)
+        window = seq_window(mesh.device)
+        kw = dict(hop_length=HOP, window=window)
+        mag = load_magnitudes([clip_path], window)[0]
+        for name, fn, counter, extra in (
+            ("griffin_lim_seq", griffin_lim_seq, "gl_fullrun.iteration_launches", {}),
+            ("admm_seq", admm_seq, "admm_fullrun.iteration_launches", {"rho": ADMM_RHO}),
+        ):
+            y, launches = run_seq(f"{name} rank {rank}", fn, mag, mesh, counter, tol=0.0,
+                                  **extra, **kw)
+            y_es, _ = run_seq(f"{name} tol rank {rank}", fn, mag, mesh, counter, tol=SEQ_TOL,
+                              eva_iter=10, **extra, **kw)
+            y_few = fn(mag, mesh, max_iter=FEW_ITERS, **extra, **kw)
+            if rank == 0:
+                for tag, out in (("", y), ("_tol", y_es), ("_few", y_few)):
+                    np.save(SMOKE_DIR / f"{name}{tag}_world{world}.npy", out.cpu().numpy())
+            res[f"{name} launches"] = launches
+            for backend in ("kernel", "fft"):
+                res[f"{name} {backend} us/iter"] = seq_us(
+                    fn, mag, mesh, dict(kw, backend=backend, **extra), dist.barrier)
+
+        mags = load_magnitudes(batch_paths, window)
+        data_mesh = make_mesh(data=world)
+        gl_kw = dict(max_iter=MAIN_ITERS, verbose=False, **kw)
+        reset_counts()
+        dist.barrier()
+        start = time.perf_counter()
+        yb = batched(st.griffin_lim, data_mesh)(mags, tol=0.0, **gl_kw)
+        torch.cuda.synchronize()
+        res["batched s"] = time.perf_counter() - start
+        check_counts(f"batched rank {rank}", {"gl_fullrun.launches": MAIN_ITERS})
+        reset_counts()
+        yg = batched(st.griffin_lim, data_mesh, global_stop=True)(
+            mags, tol=GLOBAL_STOP_TOL, eva_iter=10, mode="while", **gl_kw)
+        res["global stop iterations"] = _kernel_module("gl_fullrun").launches
+        if rank == 0:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ref = st.griffin_lim(mags, tol=0.0, **gl_kw)
+            torch.cuda.synchronize()
+            res["unsharded s"] = time.perf_counter() - start
+            res["batched bitwise"] = bool(torch.equal(yb, ref))
+            res["batched rel err"] = rel_err(yb, ref)
+            reset_counts()
+            ref_g = st.griffin_lim(mags, tol=GLOBAL_STOP_TOL, eva_iter=10, mode="while", **gl_kw)
+            res["unsharded stop iterations"] = _kernel_module("gl_fullrun").launches
+            res["global stop rel err"] = rel_err(yg, ref_g)
+            if not bool(torch.isfinite(yb).all()) or yb.shape != ref.shape:
+                raise AssertionError("batched: bad output")
+        (SMOKE_DIR / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
 def marginal_us(fn):
     """Marginal microseconds per iteration of ``fn(n_iters)``: CUDA-event
     medians of 3 runs at 200 and at 100 iterations, differenced."""
@@ -464,13 +781,29 @@ def main() -> None:
     if not (ROOT / "specinv_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from the root of a checkout of the repository")
     sys.path.insert(0, str(ROOT))
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    # The corpus clips of the seq and batched phases take a minute of numpy
+    # on the host: worker processes make them while the card runs phases 2-3.
+    with ProcessPoolExecutor(max_workers=7, mp_context=mp.get_context("spawn")) as pool:
+        clip_job = pool.submit(make_clips, str(SMOKE_DIR / "clip10m.npy"), SEQ_SAMPLES, [0])
+        batch_jobs = [pool.submit(make_clips, str(SMOKE_DIR / f"clips{i}.npy"), N_SAMPLES,
+                                  range(i, min(i + CLIP_CHUNK, BATCH_CLIPS)))
+                      for i in range(0, BATCH_CLIPS, CLIP_CHUNK)]
+        try:
+            smoke(clip_job, batch_jobs)
+        finally:
+            for job in (clip_job, *batch_jobs):
+                job.cancel()
+
+
+def smoke(clip_job, batch_jobs) -> None:
+    """Phases 1-5 (the module docstring); the clips come from the jobs."""
     import specinv_tpu_torch as st
     from specinv_tpu_torch.ops.cuda import (
         _build, admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
     )
     from specinv_tpu_torch.utils.corpus import make_speech_like
 
-    counted = (gl_fullrun, admm_fullrun, fft, rtisi_fused, gl_fused, admm_fused)
     t_start = time.perf_counter()
 
     def since() -> str:
@@ -499,6 +832,22 @@ def main() -> None:
     check("fft.cuh forward (431 x 2048)", rel_err(spec_k, spec_r), FFT_LIMIT)
     check("fft.cuh inverse (431 x 2048)", rel_err(back_k, back_r), FFT_LIMIT)
     fft_err = max(abs_err(spec_k, spec_r), abs_err(back_k, back_r))
+    # The plain versions' inverse (ops/fourier.inverse) zeroes the imaginary
+    # parts of the DC and Nyquist bins before torch.fft.irfft: cuFFT's
+    # complex-to-real transform assumes them real, and at the seq shard's
+    # 12922 frames its float32 result moved with them (a momentum state and
+    # the phase seed have them non-zero).
+    from specinv_tpu_torch.ops import fourier
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n_frames in (431, SEQ_SHARD_FRAMES):
+        spec = torch.randn(1, n_frames, N_FFT // 2 + 1, dtype=torch.complex64, device=dev,
+                           generator=gen)
+        ref64 = torch.fft.irfft(fourier._real_ends(spec.to(torch.complex128), N_FFT), n=N_FFT)
+        as_is = rel64(torch.fft.irfft(spec, n=N_FFT), ref64)
+        check(f"irfft of {n_frames} frames with real DC / Nyquist against float64 (as is "
+              f"{as_is:.1e})", rel64(torch.fft.irfft(fourier._real_ends(spec, N_FFT), n=N_FFT),
+                                     ref64), FFT_LIMIT)
 
     lr = 0.99 / 1.99
     gl_limits = (X_LIMIT, PLANE_LIMIT, SUM_LIMIT)
@@ -602,6 +951,50 @@ def main() -> None:
         rtisi_err = max(rtisi_err, check_rtisi(f"{n_fft}/{hop} {extra}", cfg, la, tgt, win,
                                                state, i0, RTISI_SMALL_LIMITS))
 
+    print(f"[3] the raw per-iteration dispatch (K4 gl_fused4._kernel, K6 "
+          f"admm_fused4._kernel_iter): shard 0 and 1 of the 10-minute clip at 2 shards "
+          f"({SEQ_SHARD_FRAMES} frames) and the whole clip at 1 ({SEQ_W1_FRAMES} frames), 1 "
+          f"and 5 launches beside a float64 plain run {since()}", flush=True)
+    win1 = seq_window(dev)
+    clip10 = torch.from_numpy(np.load(clip_job.result())[0]).to(dev)
+    mag10 = st.stft(clip10, N_FFT, hop_length=HOP, window=win1).abs()  # (F, T)
+    if mag10.shape != (N_FFT // 2 + 1, SEQ_FRAMES):
+        raise AssertionError(f"10-minute spectrogram shape {tuple(mag10.shape)}")
+    mag10_tm = mag10.T[None].contiguous()
+    shard0, valid0 = seq_shard_state(mag10_tm, cfg1, win1, 0)
+    shard1, valid1 = seq_shard_state(mag10_tm, cfg1, win1, 1)
+    if shard0[2].shape[-2] != SEQ_SHARD_FRAMES or (valid0, valid1) != (12922, 12918):
+        raise AssertionError(f"shard geometry {tuple(shard0[2].shape)}, valid {valid0}/{valid1}")
+    gl_raw_err = check_raw("gl raw, shard 0", gl_fullrun, "fused_gl_iteration", lr, cfg1,
+                           shard0, valid0, 5, RAW_GL_LIMITS)
+    admm_raw_err = max(
+        check_raw("admm raw, shard 0 (valid_t all)", admm_fullrun, "fused_admm_iteration",
+                  ADMM_RHO, cfg1, shard0, valid0, 5, admm_limits),
+        check_raw("admm raw, shard 1 (valid_t 12918 of 12922)", admm_fullrun,
+                  "fused_admm_iteration", ADMM_RHO, cfg1, shard1, valid1, 1, admm_limits),
+        check_raw("admm raw, shard 0 at valid_t 0", admm_fullrun, "fused_admm_iteration",
+                  ADMM_RHO, cfg1, shard0, 0, 1, admm_limits))
+    # world 1: the whole padded clip in one launch, as the in-process seq run
+    # of phase 4 gives it
+    whole1, valid_w1 = seq_shard_state(mag10_tm, cfg1, win1, 0, n=1)
+    if whole1[2].shape[-2] != SEQ_W1_FRAMES or valid_w1 != SEQ_FRAMES:
+        raise AssertionError(f"world-1 geometry {tuple(whole1[2].shape)}, valid {valid_w1}")
+    gl_raw_err = max(gl_raw_err, check_raw(
+        f"gl raw, world 1 ({SEQ_W1_FRAMES} frames)", gl_fullrun, "fused_gl_iteration", lr, cfg1,
+        whole1, valid_w1, 5, RAW_W1_GL_LIMITS))
+    admm_raw_err = max(admm_raw_err, check_raw(
+        f"admm raw, world 1 (valid_t {SEQ_FRAMES} of {SEQ_W1_FRAMES})", admm_fullrun,
+        "fused_admm_iteration", ADMM_RHO, cfg1, whole1, valid_w1, 5, RAW_W1_ADMM_LIMITS))
+    for n_fft, hop, extra in small + [(512, 384, {})]:
+        cfg, state = kernel_state(n_fft, hop, 7800, 2, dev, **extra)
+        label = f"{n_fft}/{hop} {extra or 'defaults'}"
+        gl_raw_err = max(gl_raw_err, check_raw(f"gl raw {label}", gl_fullrun,
+                                               "fused_gl_iteration", lr, cfg, state[:4], None,
+                                               5, gl_limits))
+        admm_raw_err = max(admm_raw_err, check_raw(f"admm raw {label}", admm_fullrun,
+                                                   "fused_admm_iteration", ADMM_RHO, cfg,
+                                                   state[:4], None, 5, admm_limits))
+
     clip = torch.from_numpy(make_speech_like(N_SAMPLES, seed=0).astype(np.float32)).to(dev)
     window = torch.hann_window(N_FFT, device=dev)
     mag = st.stft(clip, N_FFT, hop_length=HOP, window=window).abs()
@@ -619,19 +1012,14 @@ def main() -> None:
         """One main path: 100 iterations through the kernel (launch count
         read), SC against the torch.fft path, then with early stopping."""
         expected = (spec.shape[-1] - 1) * kw["hop_length"]
-        for counted_mod in counted:
-            counted_mod.launches = 0
+        reset_counts()
         y = fn(spec, max_iter=MAIN_ITERS, tol=0.0, **kw)
         torch.cuda.synchronize()
         launches = mod.launches
         if y.shape != (expected,) or y.device != clip.device or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"bad output: {tuple(y.shape)} on {y.device}")
-        if launches != MAIN_ITERS:
-            raise AssertionError(f"kernel launched {launches} times, expected {MAIN_ITERS}")
-        others = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counted
-                  if m is not mod and m.launches}
-        if others:
-            raise AssertionError(f"{name}: other kernels launched on this path: {others}")
+        # this kernel MAIN_ITERS times, no other kernel of the port
+        check_counts(name, {f"{mod.__name__.rsplit('.', 1)[-1]}.launches": MAIN_ITERS})
         y_fft = fn(spec, max_iter=MAIN_ITERS, tol=0.0, backend="fft", **kw)
         sc_k, sc_f = sc_of(y), sc_of(y_fft)
         scs[name] = (sc_k, sc_f)
@@ -720,8 +1108,7 @@ def main() -> None:
         recorded["frames"] = frames
         return synthesize(frames, *args)
 
-    for counted_mod in counted:
-        counted_mod.launches = 0
+    reset_counts()
     rt.synthesize = record
     try:
         y = st.RTISI_LA(mag, **rtisi_kw)
@@ -750,8 +1137,7 @@ def main() -> None:
 
     print(f"[4] main path: RTISIStreamer over the same 431 frames, then flush {since()}",
           flush=True)
-    for counted_mod in counted:
-        counted_mod.launches = 0
+    reset_counts()
     streamer = RecordingStreamer(N_FFT // 2 + 1, look_ahead=RTISI_LA_FRAMES,
                                  max_iter=RTISI_ITERS, hop_length=HOP, window=window)
     streamer.committed = []
@@ -767,6 +1153,111 @@ def main() -> None:
     if not torch.equal(torch.stack(streamer.committed), recorded["frames"]):
         raise AssertionError("RTISIStreamer: committed frames differ from the offline path's")
     print("  committed frames equal the offline kernel path's, bit for bit", flush=True)
+
+    from specinv_tpu_torch.parallel import admm_seq, griffin_lim_seq, make_mesh
+
+    print(f"[4] main path: griffin_lim_seq and admm_seq (rho {ADMM_RHO}), 10-minute clip "
+          f"({SEQ_SAMPLES} samples, {SEQ_FRAMES} frames), n_fft 2048, hop 512, {MAIN_ITERS} "
+          f"iterations, backend 'auto': world size 1 (the 1x1 mesh, in this process) "
+          f"{since()}", flush=True)
+    mesh1 = make_mesh()
+    seq_kw = dict(hop_length=HOP, window=win1)
+    window64 = win1.double()
+
+    def sc10(y):
+        w = window64 if y.dtype == torch.float64 else win1
+        ref = mag10.double() if y.dtype == torch.float64 else mag10
+        return float(st.sc(st.stft(y, N_FFT, hop_length=HOP, window=w).abs(), ref))
+
+    seq_paths = (
+        ("griffin_lim_seq", griffin_lim_seq, "gl_fullrun.iteration_launches", {}, st.griffin_lim),
+        ("admm_seq", admm_seq, "admm_fullrun.iteration_launches", {"rho": ADMM_RHO}, st.ADMM),
+    )
+    seq1 = {}
+    for name, fn, counter, extra, whole in seq_paths:
+        y, launches = run_seq(name, fn, mag10, mesh1, counter, tol=0.0, **extra, **seq_kw)
+        y_es, _ = run_seq(f"{name} tol", fn, mag10, mesh1, counter, tol=SEQ_TOL, eva_iter=10,
+                          **extra, **seq_kw)
+        y_whole = whole(mag10, max_iter=MAIN_ITERS, tol=0.0, verbose=False, **extra, **seq_kw)
+        y64 = fn(mag10.double(), mesh1, max_iter=MAIN_ITERS, backend="fft", hop_length=HOP,
+                 window=window64, **extra)
+        y_few = fn(mag10, mesh1, max_iter=FEW_ITERS, **extra, **seq_kw)
+        y_whole_few = whole(mag10, max_iter=FEW_ITERS, tol=0.0, verbose=False, **extra, **seq_kw)
+        seq1[name] = dict(y=y, y_few=y_few, launches=launches, sc=sc10(y), sc_es=sc10(y_es),
+                          sc_whole=sc10(y_whole), sc64=sc10(y64), whole_err=rel_err(y, y_whole),
+                          whole_few=rel_err(y_few, y_whole_few))
+        r = seq1[name]
+        print(f"  {name}: {launches} raw launches, no other kernel; SC seq {r['sc']:.4f} dB, "
+              f"tol {SEQ_TOL} {r['sc_es']:.4f}, unsharded {whole.__name__} {r['sc_whole']:.4f}, "
+              f"float64 seq (fft) {r['sc64']:.4f} dB; x against the unsharded call "
+              f"{r['whole_err']:.3e} of its max after {MAIN_ITERS} iterations, "
+              f"{r['whole_few']:.3e} after {FEW_ITERS}", flush=True)
+        check(f"{name} world 1 against the unsharded call, x after {FEW_ITERS}",
+              r["whole_few"], SEQ_WHOLE_LIMITS[name])
+
+    print(f"[4] main path at world size 2: two processes on cuda:0 over gloo (file store under "
+          f"build/), griffin_lim_seq / admm_seq, then batched(griffin_lim) over "
+          f"{BATCH_CLIPS} clips {since()}", flush=True)
+    batch_paths = [job.result() for job in batch_jobs]
+    store = SMOKE_DIR / "store"
+    for stale in (store, *SMOKE_DIR.glob("rank*.json")):
+        stale.unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    ranks = [ctx.Process(target=seq_rank, args=(r, SEQ_SHARDS, str(store), clip_job.result(),
+                                                 batch_paths)) for r in range(SEQ_SHARDS)]
+    for proc in ranks:
+        proc.start()
+    for proc in ranks:
+        proc.join(420)
+    for proc in ranks:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    codes = [proc.exitcode for proc in ranks]
+    if codes != [0] * SEQ_SHARDS:
+        raise AssertionError(f"world-2 ranks exited with {codes}")
+    res2 = [json.loads((SMOKE_DIR / f"rank{r}.json").read_text()) for r in range(SEQ_SHARDS)]
+    for name, *_ in seq_paths:
+        y2 = torch.from_numpy(np.load(SMOKE_DIR / f"{name}_world2.npy")).to(dev)
+        y2_es = torch.from_numpy(np.load(SMOKE_DIR / f"{name}_tol_world2.npy")).to(dev)
+        y2_few = torch.from_numpy(np.load(SMOKE_DIR / f"{name}_few_world2.npy")).to(dev)
+        r = seq1[name]
+        r.update(sc2=sc10(y2), sc2_es=sc10(y2_es), w2_err=rel_err(y2_few, r["y_few"]),
+                 w2_err_main=rel_err(y2, r["y"]))
+        print(f"  {name}, world 2: {MAIN_ITERS} raw launches per rank, no other kernel; SC "
+              f"{r['sc2']:.4f} dB (tol {SEQ_TOL}: {r['sc2_es']:.4f}); against world 1: x "
+              f"{r['w2_err']:.3e} of its max after {FEW_ITERS} iterations, "
+              f"{r['w2_err_main']:.3e} after {MAIN_ITERS}; SC {abs(r['sc2'] - r['sc']):.4f} dB",
+              flush=True)
+    for name, band, ceiling in (("griffin_lim_seq", SEQ_SC_BAND_DB, SC_CEILING_DB),
+                                ("admm_seq", SEQ_ADMM_SC_BAND_DB, ADMM_SC_CEILING_DB)):
+        r = seq1[name]
+        check(f"{name} world 2 against world 1, x after {FEW_ITERS}", r["w2_err"],
+              SEQ_X_LIMITS[name])
+        for label, sc in (("world 1", r["sc"]), ("world 2", r["sc2"]),
+                          ("world 1 tol", r["sc_es"]), ("world 2 tol", r["sc2_es"]),
+                          ("unsharded", r["sc_whole"])):
+            print(f"  {name} {label}: SC {sc:.4f} dB, {abs(sc - r['sc64']):.4f} dB from the "
+                  f"float64 seq run (band {band})", flush=True)
+            if not abs(sc - r["sc64"]) <= band:
+                raise AssertionError(f"{name} {label}: SC {sc:.4f} dB, float64 {r['sc64']:.4f}")
+            if not sc < ceiling:
+                raise AssertionError(f"{name} {label}: SC {sc:.2f} dB is not below {ceiling}")
+    b0 = res2[0]
+    print(f"  batched(griffin_lim), {BATCH_CLIPS} clips over 2 ranks: {MAIN_ITERS} launches "
+          f"of kernel A per rank, no other kernel; against one unsharded call: bit for bit "
+          f"{b0['batched bitwise']} (max rel err {b0['batched rel err']:.3e}); global stop "
+          f"(tol {GLOBAL_STOP_TOL}) after {b0['global stop iterations']} iterations, the "
+          f"unsharded call after {b0['unsharded stop iterations']}", flush=True)
+    if not b0["batched bitwise"]:
+        raise AssertionError("batched(griffin_lim) differs from the unsharded call")
+    stops = {res["global stop iterations"] for res in res2}
+    unsharded_stop = b0["unsharded stop iterations"]
+    if stops != {unsharded_stop} or not unsharded_stop < MAIN_ITERS:
+        raise AssertionError(f"global stop after {stops} iterations, unsharded after "
+                             f"{b0['unsharded stop iterations']}")
+    check("batched global stop against the unsharded call, x", b0["global stop rel err"],
+          X_LIMIT)
 
     print(f"[5] marginal time per iteration (CUDA events, 200 - 100 iterations) {since()}",
           flush=True)
@@ -932,6 +1423,57 @@ def main() -> None:
     dft_bounds = {tier: dft_bound(tier) for tier in ("high", "highest")}
     print(f"  direct-DFT bounds per iteration (ms): {dft_bounds}", flush=True)
 
+    print(f"[5] the seq paths on the 10-minute clip, marginal us/iter ((t(100) - t(50)) / "
+          f"50, host clock) {since()}", flush=True)
+    seq_times = {}
+    for name, fn, _, extra, whole in seq_paths:
+        for backend in ("kernel", "fft"):
+            seq_times[(name, backend)] = seq_us(fn, mag10, mesh1,
+                                                dict(seq_kw, backend=backend, **extra))
+
+        def whole_call(spec, _mesh, max_iter, whole=whole, extra=extra):
+            return whole(spec, max_iter=max_iter, tol=0.0, verbose=False, **extra, **seq_kw)
+
+        seq_times[(name, "unsharded")] = seq_us(whole_call, mag10, None, {})
+        print(f"  {name}, world 1: kernel {seq_times[(name, 'kernel')]:.2f} us/iter, fft "
+              f"{seq_times[(name, 'fft')]:.2f}; the unsharded whole-run kernel "
+              f"{seq_times[(name, 'unsharded')]:.2f}; world 2 (two ranks time-sharing one "
+              f"card, the exchange's cost, not a speed-up): kernel "
+              f"{res2[0][f'{name} kernel us/iter']:.2f}, fft {res2[0][f'{name} fft us/iter']:.2f} "
+              f"us/iter (rank 0) on {smi}", flush=True)
+    batched_us = res2[0]["batched s"] / MAIN_ITERS * 1e6
+    unsharded_us = res2[0]["unsharded s"] / MAIN_ITERS * 1e6
+    print(f"  batched(griffin_lim), {BATCH_CLIPS} clips, 2 ranks on one card: {batched_us:.2f} "
+          f"us/iter for the batch ({BATCH_CLIPS * 1e6 / batched_us:.1f} clip-it/s), call "
+          f"{res2[0]['batched s']:.3f} s; one unsharded call {unsharded_us:.2f} us/iter, "
+          f"{res2[0]['unsharded s']:.3f} s (host clock, set-up included) on {smi}", flush=True)
+
+    # one raw launch at the world-1 shape (the kernels line's, where phase 4
+    # counted its launches) and at a world-2 shard
+    raw_times, raw_bounds = {}, {}
+    for shape, (st_, valid_) in (("world 1", (whole1, valid_w1)), ("shard", (shard0, valid0))):
+        for name, mod, run, scalar in (("gl_iteration", gl_fullrun, "fused_gl_iteration", lr),
+                                       ("admm_iteration", admm_fullrun, "fused_admm_iteration",
+                                        ADMM_RHO)):
+
+            def raw_call(fn, mod=mod, scalar=scalar, st_=st_, valid_=valid_):
+                return getattr(mod, fn)(*st_, scalar, cfg1, valid_t=valid_)
+
+            raw_times[(name, shape)] = (time_ms(lambda: raw_call(run), 20),
+                                        time_ms(lambda: raw_call(f"{run}_reference"), 3))
+            print(f"  {run} (raw), one launch at {st_[2].shape[-2]} frames ({shape}): "
+                  f"{raw_times[(name, shape)][0] * 1000:.2f} us vs plain "
+                  f"{raw_times[(name, shape)][1] * 1000:.2f} us on {smi}", flush=True)
+        # x (C + H) and the state read and written, the target, window and
+        # twiddles read; both FFTs of every frame, the windows, the OLA's
+        # ceil(n_fft / hop) adds per sample and the middle
+        t_s, lp_s = st_[2].shape[-2], st_[0].shape[-1]
+        raw_bytes = nbytes(*st_, fft.twiddles(N_FFT, dev)) + nbytes(st_[0], st_[1])
+        raw_flops = t_s * (2 * fft_flops(N_FFT) + 2 * N_FFT) + lp_s * -(-N_FFT // HOP)
+        raw_bounds[("gl_iteration", shape)] = bound(raw_bytes, raw_flops + t_s * F1 * 12)
+        raw_bounds[("admm_iteration", shape)] = bound(raw_bytes, raw_flops + t_s * F1 * 20)
+    print(f"  raw dispatch bounds per launch (ms): {raw_bounds}", flush=True)
+
     def timing(ms, plain_ms, bnd, library_ms=None):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
@@ -968,6 +1510,22 @@ def main() -> None:
          "replaces": "specinv_tpu/ops/pallas/admm_fused.py:41",
          "launches": admm_dft_launches, "max_abs_err": admm_dft_err,
          **timing(*dft_times[("admm_fused", "high")], dft_bounds["high"])},
+        # the raw dispatch of kernels A and C: one launch per iteration and
+        # shard; launches: counted on the world-1 seq main path (tol 0), ms
+        # and bound: one launch at that path's shape, the whole 10-minute
+        # clip (25843 frames); max_abs_err: every raw check of phase 3
+        {"name": "gl_iteration", "route": "cuda",
+         "source": "specinv_tpu_torch/csrc/gl_fullrun.cu",
+         "replaces": "specinv_tpu/ops/pallas/gl_fused4.py:110",
+         "launches": seq1["griffin_lim_seq"]["launches"], "max_abs_err": gl_raw_err,
+         **timing(*raw_times[("gl_iteration", "world 1")],
+                  raw_bounds[("gl_iteration", "world 1")])},
+        {"name": "admm_iteration", "route": "cuda",
+         "source": "specinv_tpu_torch/csrc/admm_fullrun.cu",
+         "replaces": "specinv_tpu/ops/pallas/admm_fused4.py:89",
+         "launches": seq1["admm_seq"]["launches"], "max_abs_err": admm_raw_err,
+         **timing(*raw_times[("admm_iteration", "world 1")],
+                  raw_bounds[("admm_iteration", "world 1")])},
     ]
     print(f"  done {since()}", flush=True)
     print(json.dumps({"kernels": kernels}))

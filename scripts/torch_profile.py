@@ -3,7 +3,7 @@
 and how far float32 RTISI-LA runs lie from a float64 one.
 
 Run from the root of a checkout: ``python3 scripts/torch_profile.py``
-(one card, nvcc; about two minutes on an H100).  It fails without a card.
+(one card, nvcc; about three minutes on an H100).  It fails without a card.
 
 1. ``torch.profiler`` over one call of each path, after a warm-up call:
    griffin_lim and ADMM (BASELINE configs 1 and 2: a 10 s speech-like clip,
@@ -12,7 +12,9 @@ Run from the root of a checkout: ``python3 scripts/torch_profile.py``
    path; griffin_lim at n_fft 400 / hop 160 (ROADMAP cell C7) through
    'dft' and ``torch.fft``; and RTISI_LA (config 3: look-ahead 3, 25
    refinements, a 2 s clip at batch 1 and 16) through the kernel and the
-   ``torch.fft`` path.  Per unit of work (an
+   ``torch.fft`` path; griffin_lim_seq and admm_seq (rho 0.1) on a
+   10-minute clip at world size 1 (the 1x1 mesh), 20 iterations, through
+   the raw kernel dispatch and ``torch.fft``.  Per unit of work (an
    iteration, or an output-frame step) it prints the device kernels and the
    device time, then the call's wall time, the device's idle share of it
    (1 - the union of kernel intervals over the wall time) and the top
@@ -113,6 +115,19 @@ def main() -> None:
             profile_call(f"RTISI_LA {backend}, config 3, B={batch}",
                          lambda: st.RTISI_LA(mag2, backend=backend, **rtisi_kw), steps,
                          "frame step")
+
+    from specinv_tpu_torch.parallel import admm_seq, griffin_lim_seq, make_mesh
+
+    mesh = make_mesh()
+    seq_window = torch.hann_window(N_FFT).to(dev)
+    clip = torch.from_numpy(make_speech_like(SR * 600, seed=0).astype(np.float32)).to(dev)
+    mag600 = st.stft(clip, N_FFT, hop_length=HOP, window=seq_window).abs()
+    for name, fn in (("griffin_lim_seq", griffin_lim_seq),
+                     ("admm_seq", lambda m, mesh, **k: admm_seq(m, mesh, rho=0.1, **k))):
+        for backend in ("kernel", "fft"):
+            profile_call(f"{name} {backend}, 10-minute clip, world size 1",
+                         lambda: fn(mag600, mesh, max_iter=20, backend=backend, hop_length=HOP,
+                                    window=seq_window), 20, "iteration")
 
     print("[2] RTISI_LA SC at config 3, 16 clips of 10 s: float32 paths against float64",
           flush=True)

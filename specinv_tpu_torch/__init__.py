@@ -8,7 +8,9 @@ the direct-DFT iteration kernel of ``backend='dft'`` with the JAX precision
 tiers, and the ``torch.fft`` path), ADMM (the whole-run and direct-DFT ADMM
 kernels and the literal ``torch.fft`` chain), RTISI-LA offline and streaming
 (the multi-step RTISI kernel and the literal ``torch.fft`` step), the STFT
-pair and the metrics.
+pair and the metrics.  The parallel layer lives in
+``specinv_tpu_torch.parallel`` (``make_mesh``, ``batched``,
+``griffin_lim_seq``, ``admm_seq``), as in the JAX package.
 """
 name = "specinv_tpu_torch"
 __version__ = "0.1.0"

@@ -7,7 +7,12 @@
 // launched at :911 by fused_run_lane) and admm_fused4.py::_kernel_full
 // (:275, the (m, 128) layout, launched at :516), both driven as
 // admm_fused4.fused_admm_run.  They run every iteration inside one launch
-// with the signal and the state resident in the TPU's VMEM.
+// with the signal and the state resident in the TPU's VMEM.  One call with
+// a null inv_env (and p_amt = 0) is the raw per-iteration dispatch,
+// ops/cuda/admm_fullrun.py::fused_admm_iteration: it
+// replaces admm_fused4.py::_kernel_iter (:89, launched at :227), which the
+// sequence-parallel path runs once per iteration and shard with that
+// shard's true-frame count as valid_t (0 on a shard of padding rows).
 //
 // The state is the Douglas-Rachford one-variable reduction of the
 // reference's (X, Y, U) chain (admm_fused4.py:10-28): since Y = X + U, the
@@ -63,7 +68,8 @@ extern "C" {
 
 // One ADMM iteration: x_in -> x_out (distinct buffers), Y updated in place.
 // mag and stats may be null; stats gets per-frame partial sums of the
-// pre-update |R| over the first valid_t frames.
+// pre-update |R| over the first valid_t frames.  A null inv_env leaves the
+// raw OLA.
 int specinv_admm_iteration(const float* x_in, float* x_out, float2* y,
                            const float* target, const float* window,
                            const float2* tw, const float* inv_env,

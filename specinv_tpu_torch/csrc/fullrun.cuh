@@ -17,7 +17,9 @@
 //   buffer of a double-buffered x_pad.  A sample in an edge pad computes the
 //   OLA value at the source index repad_edges would copy from (reflect,
 //   replicate, circular; constant pads are zero), so no block reads another
-//   block's output within a launch.
+//   block's output within a launch.  A null inv_env with p_amt = 0 leaves
+//   the raw overlap-add, which the sequence-parallel path divides by the
+//   envelope only after the halo exchange.
 //
 // A Middle is a functor with
 //   __device__ float2 operator()(float2 s, float2& state, float tgt,
@@ -121,7 +123,7 @@ __global__ void frame_kernel(
 }
 
 __global__ void ola_kernel(const float* __restrict__ frames,   // (B, T, n)
-                           const float* __restrict__ inv_env,  // (lp)
+                           const float* __restrict__ inv_env,  // (lp) or null
                            float* __restrict__ x_out,          // (B, lp)
                            int B, int T, int n, int hop, int lp, int p_amt,
                            int e, int pad_mode) {
@@ -155,7 +157,7 @@ __global__ void ola_kernel(const float* __restrict__ frames,   // (B, T, n)
   for (int t = t_lo; t <= t_hi; ++t) {
     acc += fb[static_cast<size_t>(t) * n + (src - t * hop)];
   }
-  x_out[idx] = acc * inv_env[src];
+  x_out[idx] = inv_env != nullptr ? acc * inv_env[src] : acc;
 }
 
 // One iteration: x_in -> x_out (distinct buffers), state updated in place.

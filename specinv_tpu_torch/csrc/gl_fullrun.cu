@@ -8,6 +8,11 @@
 // function in the (m, 128) layout, which fused_gl_run takes when hop does
 // not divide n_fft or lane=False).  Both run every iteration inside one
 // launch with the signal and momentum planes resident in the TPU's VMEM.
+// One call with a null inv_env (and p_amt = 0) is the raw per-iteration
+// dispatch, ops/cuda/gl_fullrun.py::fused_gl_iteration: it
+// replaces specinv_tpu/ops/pallas/gl_fused4.py::_kernel (:110, launched at
+// :265), which the sequence-parallel path runs once per iteration and shard
+// and which stops at the raw overlap-add.
 // What it computes per iteration, for every clip b and frame t:
 //
 //   S      = FFT(window * x_pad[b, t*hop : t*hop + n_fft])   (onesided bins)
@@ -59,7 +64,8 @@ struct GLMiddle {
 extern "C" {
 
 // One Griffin-Lim iteration: x_in -> x_out (distinct buffers), pre updated
-// in place.  mag and stats may be null; stats gets per-frame partial sums.
+// in place.  mag and stats may be null; stats gets per-frame partial sums
+// over the first valid_t frames.  A null inv_env leaves the raw OLA.
 int specinv_gl_iteration(const float* x_in, float* x_out, float2* pre,
                          const float* target, const float* window,
                          const float2* tw, const float* inv_env, float* frames,

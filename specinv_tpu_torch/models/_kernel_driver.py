@@ -50,6 +50,14 @@ def make_geometry(cfg: STFTConfig, T: int) -> PaddedGeometry:
     return PaddedGeometry(lp=lp, l_out=l_out, p_amt=p_amt, e=p_amt + l_out - 1)
 
 
+def raw_geometry(cfg: STFTConfig, T: int) -> PaddedGeometry:
+    """The geometry of an iteration that stops at the raw overlap-add (the
+    JAX ``normalize=False``): no edge pads, every one of the ``lp`` samples
+    is real, so :func:`repad_edges` leaves the signal as it is."""
+    lp = (T - 1) * cfg.hop_length + cfg.n_fft
+    return PaddedGeometry(lp=lp, l_out=lp, p_amt=0, e=lp - 1)
+
+
 def make_inv_env(
     cfg: STFTConfig, window: torch.Tensor, T: int, geo: PaddedGeometry
 ) -> torch.Tensor:
@@ -79,6 +87,11 @@ def repad_edges(x_div: torch.Tensor, cfg: STFTConfig, geo: PaddedGeometry) -> to
     return torch.cat([left, x_div[..., p : e + 1], right], dim=-1)
 
 
+def _normalize(y, inv_env, cfg: STFTConfig, geo: PaddedGeometry):
+    """``y * inv_env`` re-padded, or the raw ``y`` when ``inv_env`` is None."""
+    return y if inv_env is None else repad_edges(y * inv_env, cfg, geo)
+
+
 def gl_twin(state, target, window, inv_env, lr, cfg: STFTConfig, geo: PaddedGeometry):
     """One Griffin-Lim iteration of the kernel's math in plain PyTorch.
 
@@ -87,7 +100,8 @@ def gl_twin(state, target, window, inv_env, lr, cfg: STFTConfig, geo: PaddedGeom
     the plain version of the CUDA kernel (its CPU path and its check on the
     card) and, under autograd, its backward.  The ``1e-30`` inside the square
     roots keeps the gradient finite at exact zeros; it moves no float32
-    value.
+    value.  With ``inv_env`` None and :func:`raw_geometry` it stops at the
+    raw overlap-add.
     """
     x_pad, pre = state
     frames = frame(x_pad, cfg.n_fft, cfg.hop_length) * window
@@ -96,8 +110,7 @@ def gl_twin(state, target, window, inv_env, lr, cfg: STFTConfig, geo: PaddedGeom
     s = s - lr * pre
     norm = torch.sqrt(s.real * s.real + s.imag * s.imag + 1e-30) + PROJ_EPS
     fr = fourier.inverse(s * (target / norm), cfg) * window
-    y = overlap_add(fr, cfg.hop_length) * inv_env
-    return (repad_edges(y, cfg, geo), s), mag
+    return (_normalize(overlap_add(fr, cfg.hop_length), inv_env, cfg, geo), s), mag
 
 
 def admm_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedGeometry,
@@ -110,7 +123,7 @@ def admm_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedG
     X + U`` persists); returns ``((x_pad, Y'), mag)`` with ``mag`` the
     pre-update ``|R|``.  Frames ``t >= valid_t`` get ``Y' = 0``.  Like
     :func:`gl_twin` it is the kernel's CPU path, its check on the card and
-    its backward.
+    its backward; ``inv_env`` None stops it at the raw overlap-add.
     """
     x_pad, Y = state
     frames = frame(x_pad, cfg.n_fft, cfg.hop_length) * window
@@ -125,8 +138,7 @@ def admm_twin(state, target, window, inv_env, rho, cfg: STFTConfig, geo: PaddedG
         valid = torch.arange(y_new.shape[-2], device=y_new.device) < valid_t
         y_new = torch.where(valid[:, None], y_new, torch.zeros_like(y_new))
     fr = fourier.inverse(y_new, cfg) * window
-    y = overlap_add(fr, cfg.hop_length) * inv_env
-    return (repad_edges(y, cfg, geo), y_new), mag
+    return (_normalize(overlap_add(fr, cfg.hop_length), inv_env, cfg, geo), y_new), mag
 
 
 def _dft_forward(frames, tables, scheme):
@@ -275,7 +287,7 @@ def rtisi_steps_twin(keeped, update, pre, target, windows: RTISIWindows, lr,
 
 def run_kernel_loop(run, state0, target, geo: PaddedGeometry, max_iter: int, tol,
                     eva_iter: int, metric: str, verbose: bool, mode: str,
-                    early_stop: bool, remat: bool) -> torch.Tensor:
+                    early_stop: bool, remat: bool, loss_psum_axes=None) -> torch.Tensor:
     """Drive a whole-run kernel, the counterpart of the loop in the JAX
     ``run_tm_pallas4`` drivers; returns the trimmed signal ``(B, l_out)``.
 
@@ -284,7 +296,8 @@ def run_kernel_loop(run, state0, target, geo: PaddedGeometry, max_iter: int, tol
     ``with_loss`` flags.  With no evaluation (``tol == 0``, not verbose) all
     ``max_iter`` iterations are one queue of launches; otherwise the run is
     eval segments of ``eva_iter`` iterations whose last iteration emits the
-    two reduced sums, then an eval-free tail of ``max_iter % eva_iter``.
+    two reduced sums, then an eval-free tail of ``max_iter % eva_iter``;
+    the stop loss sums over the mesh axes ``loss_psum_axes`` when given.
     """
     if not (early_stop or verbose):
         x_pad = run(state0, max_iter)
@@ -300,7 +313,7 @@ def run_kernel_loop(run, state0, target, geo: PaddedGeometry, max_iter: int, tol
             def tail_fn(state):
                 return run(state, max_iter % eva_iter, emit_state=True), None
 
-        loss_fn, metric_fn = stats_eval_fns(metric, target)
+        loss_fn, metric_fn = stats_eval_fns(metric, target, loss_psum_axes)
         x_pad = iterate_segmented(
             seg_step, state0, target, max_iter=max_iter, tol=tol,
             eva_iter=eva_iter, tail_fn=tail_fn, metric=metric, verbose=verbose,

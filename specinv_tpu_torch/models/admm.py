@@ -39,7 +39,7 @@ from ..ops import dft
 from ..ops.cuda import admm_fullrun, admm_fused
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
-from ..utils.runner import iterate
+from ..utils.runner import iterate, stop_loss_fn
 from ._kernel_driver import make_geometry, make_inv_env, run_kernel_loop
 from .common import prepare_spec_b3, restore_output
 from .griffin_lim import check_args, magnitude_project, resolve_backend
@@ -76,7 +76,7 @@ def step(state, target_tm, rho, cfg: STFTConfig, window, envelope):
 def run_tm(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
            max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
            verbose: bool = False, mode: str = "fori", early_stop: bool = True,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, loss_psum_axes=None) -> torch.Tensor:
     """Time-major ADMM on ``torch.fft``, the literal (X, Y, U, x) chain:
     target (B, T, F) -> (B, L)."""
     envelope = make_envelope(cfg, window, target_tm.shape[-2])
@@ -88,7 +88,7 @@ def run_tm(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     state = iterate(
         step_fn, state, target_tm, max_iter=max_iter, tol=tol, eva_iter=eva_iter,
         metric=metric, verbose=verbose, mode=mode, early_stop=early_stop,
-        remat=remat,
+        remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
     )
     return state[3]
 
@@ -96,7 +96,8 @@ def run_tm(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
 def run_tm_kernel(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
                   max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
                   verbose: bool = False, mode: str = "fori",
-                  early_stop: bool = True, remat: bool = False) -> torch.Tensor:
+                  early_stop: bool = True, remat: bool = False,
+                  loss_psum_axes=None) -> torch.Tensor:
     """ADMM through the whole-run kernel in the DR form, the counterpart of
     the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L).
 
@@ -121,14 +122,14 @@ def run_tm_kernel(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     return run_kernel_loop(
         run, (x_pad0, y0), target, geo, max_iter=max_iter, tol=tol,
         eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat,
+        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
     )
 
 
 def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
                max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
                verbose: bool = False, mode: str = "fori", early_stop: bool = True,
-               remat: bool = False, precision="high") -> torch.Tensor:
+               remat: bool = False, precision="high", loss_psum_axes=None) -> torch.Tensor:
     """ADMM through the direct-DFT iteration kernel in the DR form (float32),
     the counterpart of the JAX ``admm.run_tm_pallas``: target (B, T, F) ->
     (B, L).  One launch per iteration under ``utils/runner.iterate``, the
@@ -152,13 +153,14 @@ def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     state = iterate(
         step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
         tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat,
+        early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
     )
     return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
 
 
 def _full_run(spec_b3, window, rho, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat, precision=None):
+              verbose, mode, backend, early_stop, remat, precision=None,
+              loss_psum_axes=None):
     """Layout transpose + phase seed + loop."""
     if spec_b3.dtype in (torch.bfloat16, torch.float16):
         spec_b3 = spec_b3.float()
@@ -172,12 +174,13 @@ def _full_run(spec_b3, window, rho, tol, cfg, max_iter, eva_iter, metric,
             target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
             eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
             early_stop=early_stop, remat=remat, precision=precision,
+            loss_psum_axes=loss_psum_axes,
         )
     run = run_tm_kernel if backend == "kernel" else run_tm
     return run(
         target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
         eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat,
+        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
     )
 
 
@@ -205,7 +208,7 @@ def ADMM(
     ``backend`` ('auto'/'kernel'/'dft'/'fft'), ``precision`` and ``remat``
     as on :func:`griffin_lim`, except that ``'dft'`` takes one precision
     tier, not a ``(forward, inverse)`` pair (see the module docstring);
-    ``loss_psum_axes`` and ``pack`` must stay unset.
+    ``loss_psum_axes`` as on :func:`griffin_lim`; ``pack`` must stay unset.
     """
     if not (eva_iter > 0 and max_iter > 0 and tol >= 0):
         raise ValueError(
@@ -220,6 +223,7 @@ def ADMM(
         spec_b3, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,
         metric=metric, verbose=verbose, mode=mode, backend=backend,
         early_stop=bool(tol > 0), remat=remat, precision=precision,
+        loss_psum_axes=loss_psum_axes,
     )
     return restore_output(x, was_2d)
 

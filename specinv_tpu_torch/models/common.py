@@ -35,6 +35,18 @@ def prepare_spec_b3(
     return spec, was_2d, cfg, window_tensor(window_np, spec.device, real)
 
 
+def prepare_spec(
+    spec: Any, **stft_kwargs
+) -> Tuple[torch.Tensor, bool, STFTConfig, torch.Tensor]:
+    """Canonicalize a user spectrogram into the time-major layout.
+
+    Returns ``(spec_tm, was_2d, cfg, window)`` where ``spec_tm`` is the
+    ``(B, T, F)`` view (complex or magnitude, as given).
+    """
+    spec, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
+    return spec.transpose(-1, -2), was_2d, cfg, window
+
+
 def restore_output(x: torch.Tensor, was_2d: bool) -> torch.Tensor:
     """Apply the reference's batch-squeeze rule to a (B, L) waveform."""
     if was_2d and x.shape[0] == 1:

@@ -69,7 +69,7 @@ def step(state, target_tm, lr, cfg: STFTConfig, window, envelope):
 def run_tm(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
            max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
            verbose: bool = False, mode: str = "fori", early_stop: bool = True,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, loss_psum_axes=None) -> torch.Tensor:
     """Time-major Griffin-Lim on ``torch.fft``: target (B, T, F) -> (B, L)."""
     envelope = make_envelope(cfg, window, target_tm.shape[-2])
     state = init(target_tm, init_spec_tm, cfg, window, envelope=envelope)
@@ -80,7 +80,7 @@ def run_tm(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     state = iterate(
         step_fn, state, target_tm, max_iter=max_iter, tol=tol, eva_iter=eva_iter,
         metric=metric, verbose=verbose, mode=mode, early_stop=early_stop,
-        remat=remat,
+        remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
     )
     return state[0]
 
@@ -88,7 +88,8 @@ def run_tm(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
 def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
                   max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
                   verbose: bool = False, mode: str = "fori",
-                  early_stop: bool = True, remat: bool = False) -> torch.Tensor:
+                  early_stop: bool = True, remat: bool = False,
+                  loss_psum_axes=None) -> torch.Tensor:
     """Griffin-Lim through the whole-run kernel (float32), the counterpart of
     the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L)."""
     T = target_tm.shape[-2]
@@ -106,14 +107,14 @@ def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     return run_kernel_loop(
         run, (x_pad0, pre0), target, geo, max_iter=max_iter, tol=tol,
         eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat,
+        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
     )
 
 
 def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
                max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
                verbose: bool = False, mode: str = "fori", early_stop: bool = True,
-               remat: bool = False, precision="high") -> torch.Tensor:
+               remat: bool = False, precision="high", loss_psum_axes=None) -> torch.Tensor:
     """Griffin-Lim through the direct-DFT iteration kernel (float32), the
     counterpart of the JAX ``run_tm_pallas``: target (B, T, F) -> (B, L).
 
@@ -138,13 +139,14 @@ def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     state = iterate(
         step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
         tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat,
+        early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
     )
     return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
 
 
 def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat, precision=None):
+              verbose, mode, backend, early_stop, remat, precision=None,
+              loss_psum_axes=None):
     """Layout transpose + phase seed + loop."""
     if spec_b3.dtype in (torch.bfloat16, torch.float16):
         spec_b3 = spec_b3.float()
@@ -158,12 +160,13 @@ def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
             target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
             eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
             early_stop=early_stop, remat=remat, precision=precision,
+            loss_psum_axes=loss_psum_axes,
         )
     run = run_tm_kernel if backend == "kernel" else run_tm
     return run(
         target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
         eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat,
+        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
     )
 
 
@@ -198,8 +201,9 @@ def resolve_backend(backend: str, cfg: STFTConfig, window, device,
 
 def check_args(stft_kwargs, loss_psum_axes, pack) -> None:
     """The backend-free argument checks ``griffin_lim`` and ``ADMM`` share.
-    ``loss_psum_axes`` belongs to the parallel wrappers and ``pack`` to the
-    TPU kernel's grid; neither has a counterpart here."""
+    ``loss_psum_axes`` must name axes of the mesh the caller bound
+    (``parallel.batched``); ``pack`` folds clips into the TPU kernel's grid
+    and has no counterpart here."""
     unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
     if unknown:
         raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
@@ -234,9 +238,10 @@ def griffin_lim(
     (a tier of ``ops/dft.py`` or a ``(forward, inverse)`` pair on
     ``'dft'``; None, 'high' or 'highest' elsewhere) and ``remat``
     (recompute each iteration in the backward pass) as in the JAX package.
-    ``loss_psum_axes`` belongs to the parallel wrappers and ``pack`` to the
-    TPU kernel's grid; neither has a counterpart here, so both must stay
-    unset.
+    ``loss_psum_axes`` sums the stop loss over those mesh axes, so that
+    every rank of ``parallel.batched(..., global_stop=True)`` stops on the
+    global loss (on every backend); ``pack`` folds clips into the TPU
+    kernel's grid, has no counterpart here and must stay unset.
     """
     if alpha < 0:
         raise ValueError(f"alpha must be >= 0, got {alpha}")
@@ -248,5 +253,6 @@ def griffin_lim(
         spec_b3, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,
         eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
         backend=backend, early_stop=bool(tol > 0), remat=remat, precision=precision,
+        loss_psum_axes=loss_psum_axes,
     )
     return restore_output(x, was_2d)

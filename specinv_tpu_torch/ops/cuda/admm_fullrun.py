@@ -9,28 +9,57 @@ coordinates, the Douglas-Rachford state ``Y`` and the target as ``(B, T, F)``
 planes in natural bin order (``convert.state_from_jax`` carries the JAX
 ``Y_re``/``Y_im`` planes across).
 
-On a CPU tensor it runs :func:`fused_admm_run_reference`; on a CUDA tensor it
-queues ``n_iters`` kernel iterations on the current stream with no host
-sync, or raises.  Gradients flow through a ``torch.autograd.Function`` whose
-backward replays the plain twin (``models/_kernel_driver.admm_twin``) under
-autograd, as the JAX package's ``custom_vjp`` replays ``admm_xla_twin4``.
+:func:`fused_admm_iteration` is one launch of the same C entry point that
+stops at the raw overlap-add, the counterpart of
+``admm_fused4.fused_admm_iteration4`` (``admm_fused4.py::_kernel_iter``,
+one iteration per launch, a row count that differs per shard) with
+``normalize=False``, the form the sequence-parallel path calls.
+
+On a CPU tensor both run their plain version; on a CUDA tensor they queue
+kernel iterations on the current stream with no host sync, or raise.
+Gradients flow through a ``torch.autograd.Function`` whose backward replays
+the plain twin (``models/_kernel_driver.admm_twin``) under autograd, as the
+JAX package's ``custom_vjp`` replays ``admm_xla_twin4``.
 """
 from __future__ import annotations
 
 import torch
 
 from ...config import STFTConfig
-from ...models._kernel_driver import admm_twin, make_geometry
+from ...models._kernel_driver import admm_twin
 from . import _fullrun
-from ._fullrun import UNSUPPORTED, outputs, supports, valid_frames
+from ._fullrun import (  # noqa: F401  (supports: the kernel's config rule, read here too)
+    outputs, supports, valid_count, valid_frames,
+)
 
-# Kernel iterations launched (one frame + one OLA launch each).
+# Kernel iterations launched (one frame + one OLA launch each) by the whole
+# run, and by the raw per-iteration dispatch.
 launches = 0
+iteration_launches = 0
 
 
 def _count():
     global launches
     launches += 1
+
+
+def _count_iteration():
+    global iteration_launches
+    iteration_launches += 1
+
+
+def _plain(x_pad, Y, target, window, inv_env, rho, cfg: STFTConfig, n_iters: int,
+           emit_state: bool = False, with_mag: bool = False, with_loss: bool = False,
+           valid_t: int = 0):
+    """``n_iters`` plain iterations; ``valid_t`` is an explicit frame count
+    (0: every frame's ``Y`` is zeroed) and an ``inv_env`` of None stops each
+    at the raw overlap-add."""
+    geo = _fullrun.geometry(cfg, target.shape[-2], inv_env)
+    state, mag = (x_pad, Y), None
+    for _ in range(n_iters):
+        state, mag = admm_twin(state, target, window, inv_env, rho, cfg, geo, valid_t)
+    stats = _fullrun.eval_sums(mag, target, valid_t) if with_loss else None
+    return outputs(*state, mag, stats, emit_state, with_mag, with_loss)
 
 
 def fused_admm_run_reference(
@@ -39,22 +68,26 @@ def fused_admm_run_reference(
     valid_t: int = 0,
 ):
     """Plain PyTorch version of :func:`fused_admm_run` (same contract)."""
-    T = target.shape[-2]
-    geo = make_geometry(cfg, T)
-    v = valid_frames(valid_t, T)
-    state, mag = (x_pad, Y), None
-    for _ in range(n_iters):
-        state, mag = admm_twin(state, target, window, inv_env, rho, cfg, geo, v)
-    stats = _fullrun.eval_sums(mag, target, valid_t) if with_loss else None
-    return outputs(*state, mag, stats, emit_state, with_mag, with_loss)
+    return _plain(x_pad, Y, target, window, inv_env, rho, cfg, n_iters, emit_state,
+                  with_mag, with_loss, valid_frames(valid_t, target.shape[-2]))
 
 
-def _launch(x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag,
-            with_loss, valid_t):
-    """Queue ``n_iters`` kernel iterations; returns (x, Y, mag, stats)."""
+def fused_admm_iteration_reference(
+    x_pad, Y, target, window, rho, cfg: STFTConfig, with_mag: bool = False,
+    with_loss: bool = False, valid_t=None,
+):
+    """Plain PyTorch version of :func:`fused_admm_iteration` (same contract)."""
+    return _plain(x_pad, Y, target, window, None, rho, cfg, 1, True, with_mag, with_loss,
+                  valid_count(valid_t, target.shape[-2]))
+
+
+def _launch(x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag, with_loss,
+            valid, count):
+    """Queue ``n_iters`` kernel iterations, calling ``count()`` before each;
+    returns ``(x, Y, mag, stats)``."""
     return _fullrun.launch(
-        "specinv_admm_iteration", _count, x_pad, Y, target, window, inv_env, rho,
-        cfg, n_iters, with_mag, with_loss, valid_t,
+        "specinv_admm_iteration", count, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
+        with_mag, with_loss, valid,
     )
 
 
@@ -63,21 +96,21 @@ class _ADMMRun(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
-                with_mag, with_loss, valid_t):
+                with_mag, with_loss, valid, count):
         x, y_out, mag, stats = _launch(
-            x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag,
-            with_loss, valid_t,
+            x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag, with_loss,
+            valid, count,
         )
         ctx.save_for_backward(x_pad, Y, target, window, inv_env)
-        ctx.scalar, ctx.cfg, ctx.n_iters, ctx.valid_t = rho, cfg, n_iters, valid_t
+        ctx.scalar, ctx.cfg, ctx.n_iters, ctx.valid_t = rho, cfg, n_iters, valid
         extras = [t for t in (mag, stats) if t is not None]
         ctx.mark_non_differentiable(*extras)
         return (x, y_out, *extras)
 
     @staticmethod
     def backward(ctx, g_x, g_y, *_g_extras):
-        grads = _fullrun.replay_backward(ctx, fused_admm_run_reference, g_x, g_y)
-        return (*grads, None, None, None, None, None, None)
+        grads = _fullrun.replay_backward(ctx, _plain, g_x, g_y)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def fused_admm_run(
@@ -100,17 +133,32 @@ def fused_admm_run(
             x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
             emit_state, with_mag, with_loss, valid_t,
         )
-    if not supports(cfg, window):
-        raise ValueError(
-            f"the ADMM kernel needs {UNSUPPORTED} (n_fft={cfg.n_fft}, "
-            f"hop={cfg.hop_length})"
+    _fullrun.check_config(cfg, window, n_iters, "ADMM")
+    return _fullrun.apply(_ADMMRun, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
+                          emit_state, with_mag, with_loss,
+                          valid_frames(valid_t, target.shape[-2]), _count)
+
+
+def fused_admm_iteration(
+    x_pad, Y, target, window, rho, cfg: STFTConfig, with_mag: bool = False,
+    with_loss: bool = False, valid_t=None,
+):
+    """One raw DR-ADMM iteration, one kernel launch -> ``(x, Y[, mag][,
+    stats])``, the counterpart of ``admm_fused4.fused_admm_iteration4`` with
+    ``normalize=False``.
+
+    The signal is the raw overlap-add of the windowed frames, ``(B,
+    (T-1)*hop + n_fft)``, with no envelope and no re-pad: times the envelope
+    and re-padded it is one iteration of :func:`fused_admm_run`.
+    ``valid_t`` counts the frames that keep their ``Y`` and enter the eval
+    sums: None for all ``T``, 0 for none (a shard of padding rows; the
+    whole-run dispatch reads 0 as all).
+    """
+    if x_pad.device.type == "cpu":
+        return fused_admm_iteration_reference(
+            x_pad, Y, target, window, rho, cfg, with_mag, with_loss, valid_t,
         )
-    if n_iters < 1:
-        raise ValueError(f"n_iters must be >= 1, got {n_iters}")
-    x, y_out, *extras = _ADMMRun.apply(
-        x_pad, Y, target, window, inv_env, float(rho), cfg, n_iters, with_mag,
-        with_loss, valid_t,
-    )
-    mag = extras.pop(0) if with_mag else None
-    stats = extras.pop(0) if with_loss else None
-    return outputs(x, y_out, mag, stats, emit_state, with_mag, with_loss)
+    _fullrun.check_config(cfg, window, 1, "ADMM")
+    return _fullrun.apply(_ADMMRun, x_pad, Y, target, window, None, rho, cfg, 1, True,
+                          with_mag, with_loss, valid_count(valid_t, target.shape[-2]),
+                          _count_iteration)

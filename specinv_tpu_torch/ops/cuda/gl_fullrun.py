@@ -8,28 +8,56 @@ divide n_fft), both driven as ``gl_fullrun4.fused_gl_run``.
 signal ``x_pad (B, lp)`` in padded coordinates, the momentum ``pre`` and the
 target as ``(B, T, F)`` onesided planes in natural bin order.
 
-On a CPU tensor it runs :func:`fused_gl_run_reference`; on a CUDA tensor it
-queues ``n_iters`` kernel iterations on the current stream with no host
-sync, or raises.  Gradients flow through a ``torch.autograd.Function`` whose
-backward replays the plain twin (``models/_kernel_driver.gl_twin``) under
-autograd, as the JAX package's ``custom_vjp`` replays ``gl_xla_twin4``.
+:func:`fused_gl_iteration` is one launch of the same C entry point that
+stops at the raw overlap-add (no envelope, no re-pad), the counterpart of
+``gl_fused4.fused_gl_iteration4`` (``gl_fused4.py::_kernel``, one iteration
+per launch) with ``normalize=False``, the form the sequence-parallel path
+calls.
+
+On a CPU tensor both run their plain version; on a CUDA tensor they queue
+kernel iterations on the current stream with no host sync, or raise.
+Gradients flow through a ``torch.autograd.Function`` whose backward replays
+the plain twin (``models/_kernel_driver.gl_twin``) under autograd, as the
+JAX package's ``custom_vjp`` replays ``gl_xla_twin4``.
 """
 from __future__ import annotations
 
 import torch
 
 from ...config import STFTConfig
-from ...models._kernel_driver import gl_twin, make_geometry
+from ...models._kernel_driver import gl_twin
 from . import _fullrun
-from ._fullrun import UNSUPPORTED, outputs, supports
+from ._fullrun import (  # noqa: F401  (supports, UNSUPPORTED: the backend rule reads them here)
+    UNSUPPORTED, outputs, supports, valid_count, valid_frames,
+)
 
-# Kernel iterations launched (one frame + one OLA launch each).
+# Kernel iterations launched (one frame + one OLA launch each) by the whole
+# run, and by the raw per-iteration dispatch.
 launches = 0
+iteration_launches = 0
 
 
 def _count():
     global launches
     launches += 1
+
+
+def _count_iteration():
+    global iteration_launches
+    iteration_launches += 1
+
+
+def _plain(x_pad, pre, target, window, inv_env, lr, cfg: STFTConfig, n_iters: int,
+           emit_state: bool = False, with_mag: bool = False, with_loss: bool = False,
+           valid_t: int = 0):
+    """``n_iters`` plain iterations; ``valid_t`` is an explicit frame count
+    and an ``inv_env`` of None stops each at the raw overlap-add."""
+    geo = _fullrun.geometry(cfg, target.shape[-2], inv_env)
+    state, mag = (x_pad, pre), None
+    for _ in range(n_iters):
+        state, mag = gl_twin(state, target, window, inv_env, lr, cfg, geo)
+    stats = _fullrun.eval_sums(mag, target, valid_t) if with_loss else None
+    return outputs(*state, mag, stats, emit_state, with_mag, with_loss)
 
 
 def fused_gl_run_reference(
@@ -38,20 +66,26 @@ def fused_gl_run_reference(
     valid_t: int = 0,
 ):
     """Plain PyTorch version of :func:`fused_gl_run` (same contract)."""
-    geo = make_geometry(cfg, target.shape[-2])
-    state, mag = (x_pad, pre), None
-    for _ in range(n_iters):
-        state, mag = gl_twin(state, target, window, inv_env, lr, cfg, geo)
-    stats = _fullrun.eval_sums(mag, target, valid_t) if with_loss else None
-    return outputs(*state, mag, stats, emit_state, with_mag, with_loss)
+    return _plain(x_pad, pre, target, window, inv_env, lr, cfg, n_iters, emit_state,
+                  with_mag, with_loss, valid_frames(valid_t, target.shape[-2]))
 
 
-def _launch(x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag,
-            with_loss, valid_t):
-    """Queue ``n_iters`` kernel iterations; returns (x, pre, mag, stats)."""
+def fused_gl_iteration_reference(
+    x_pad, pre, target, window, lr, cfg: STFTConfig, with_mag: bool = False,
+    with_loss: bool = False, valid_t=None,
+):
+    """Plain PyTorch version of :func:`fused_gl_iteration` (same contract)."""
+    return _plain(x_pad, pre, target, window, None, lr, cfg, 1, True, with_mag, with_loss,
+                  valid_count(valid_t, target.shape[-2]))
+
+
+def _launch(x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag, with_loss,
+            valid, count):
+    """Queue ``n_iters`` kernel iterations, calling ``count()`` before each;
+    returns ``(x, pre, mag, stats)``."""
     return _fullrun.launch(
-        "specinv_gl_iteration", _count, x_pad, pre, target, window, inv_env, lr,
-        cfg, n_iters, with_mag, with_loss, valid_t,
+        "specinv_gl_iteration", count, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
+        with_mag, with_loss, valid,
     )
 
 
@@ -60,21 +94,21 @@ class _GLRun(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
-                with_mag, with_loss, valid_t):
+                with_mag, with_loss, valid, count):
         x, pre_out, mag, stats = _launch(
-            x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag,
-            with_loss, valid_t,
+            x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag, with_loss,
+            valid, count,
         )
         ctx.save_for_backward(x_pad, pre, target, window, inv_env)
-        ctx.scalar, ctx.cfg, ctx.n_iters, ctx.valid_t = lr, cfg, n_iters, valid_t
+        ctx.scalar, ctx.cfg, ctx.n_iters, ctx.valid_t = lr, cfg, n_iters, valid
         extras = [t for t in (mag, stats) if t is not None]
         ctx.mark_non_differentiable(*extras)
         return (x, pre_out, *extras)
 
     @staticmethod
     def backward(ctx, g_x, g_pre, *_g_extras):
-        grads = _fullrun.replay_backward(ctx, fused_gl_run_reference, g_x, g_pre)
-        return (*grads, None, None, None, None, None, None)
+        grads = _fullrun.replay_backward(ctx, _plain, g_x, g_pre)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def fused_gl_run(
@@ -95,17 +129,31 @@ def fused_gl_run(
             x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
             emit_state, with_mag, with_loss, valid_t,
         )
-    if not supports(cfg, window):
-        raise ValueError(
-            f"the Griffin-Lim kernel needs {UNSUPPORTED} (n_fft={cfg.n_fft}, "
-            f"hop={cfg.hop_length})"
+    _fullrun.check_config(cfg, window, n_iters, "Griffin-Lim")
+    return _fullrun.apply(_GLRun, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
+                          emit_state, with_mag, with_loss,
+                          valid_frames(valid_t, target.shape[-2]), _count)
+
+
+def fused_gl_iteration(
+    x_pad, pre, target, window, lr, cfg: STFTConfig, with_mag: bool = False,
+    with_loss: bool = False, valid_t=None,
+):
+    """One raw Griffin-Lim iteration, one kernel launch -> ``(x, pre[,
+    mag][, stats])``, the counterpart of ``gl_fused4.fused_gl_iteration4``
+    with ``normalize=False``.
+
+    The signal is the raw overlap-add of the windowed frames, ``(B,
+    (T-1)*hop + n_fft)``, with no envelope and no re-pad: times the envelope
+    and re-padded it is one iteration of :func:`fused_gl_run`.  ``valid_t``
+    is the number of frames the eval sums cover: None for all ``T``, 0 for
+    none.
+    """
+    if x_pad.device.type == "cpu":
+        return fused_gl_iteration_reference(
+            x_pad, pre, target, window, lr, cfg, with_mag, with_loss, valid_t,
         )
-    if n_iters < 1:
-        raise ValueError(f"n_iters must be >= 1, got {n_iters}")
-    x, pre_out, *extras = _GLRun.apply(
-        x_pad, pre, target, window, inv_env, float(lr), cfg, n_iters, with_mag,
-        with_loss, valid_t,
-    )
-    mag = extras.pop(0) if with_mag else None
-    stats = extras.pop(0) if with_loss else None
-    return outputs(x, pre_out, mag, stats, emit_state, with_mag, with_loss)
+    _fullrun.check_config(cfg, window, 1, "Griffin-Lim")
+    return _fullrun.apply(_GLRun, x_pad, pre, target, window, None, lr, cfg, 1, True,
+                          with_mag, with_loss, valid_count(valid_t, target.shape[-2]),
+                          _count_iteration)

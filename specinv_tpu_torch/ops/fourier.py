@@ -64,9 +64,38 @@ def forward(frames: torch.Tensor, cfg: STFTConfig, backend: str = "auto") -> tor
     return torch.fft.fft(frames, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm)
 
 
+# (F, 2) masks of _real_ends per (bins, even n, device, dtype)
+_ENDS_MASKS: dict = {}
+
+
+def _real_ends(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """``spec`` with the imaginary parts of its DC and (``n`` even) Nyquist
+    bins zeroed, in one multiply by a cached mask.  The real inverse of a
+    Hermitian-completed spectrum reads only their real parts, as the CPU's
+    ``irfft`` and the kernels do; cuFFT's complex-to-real transform assumes
+    them real, and where they are not (a momentum state, a phase seed) its
+    float32 result depends on them at some batch sizes (chip_smoke.py phase
+    3 prints how far, at 431 and at 12922 frames of n_fft 2048)."""
+    bins = spec.shape[-1]
+    key = (bins, n % 2 == 0 and bins == n // 2 + 1, spec.device, spec.real.dtype)
+    mask = _ENDS_MASKS.get(key)
+    if mask is None:
+        mask = torch.ones((bins, 2), dtype=key[3], device=spec.device)
+        mask[0, 1] = 0
+        if key[1]:
+            mask[-1, 1] = 0
+        _ENDS_MASKS[key] = mask
+    return torch.view_as_complex(torch.view_as_real(spec) * mask)
+
+
 def inverse(spec: torch.Tensor, cfg: STFTConfig, backend: str = "auto") -> torch.Tensor:
-    """Real part of the inverse DFT -> real frames (..., T, n_fft)."""
+    """Real part of the inverse DFT -> real frames (..., T, n_fft).  On the
+    card the onesided inverse zeroes the imaginary parts of the DC and
+    Nyquist bins first (:func:`_real_ends`); the CPU's ``irfft`` never reads
+    them."""
     resolve_backend(backend)
     if cfg.onesided:
+        if spec.is_cuda:
+            spec = _real_ends(spec, cfg.n_fft)
         return torch.fft.irfft(spec, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm)
     return torch.fft.ifft(spec, n=cfg.n_fft, dim=-1, norm=cfg.fft_norm).real

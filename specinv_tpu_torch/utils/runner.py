@@ -25,6 +25,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..metrics import get_metric
+from .collective import axis_sum
 
 StepFn = Callable[..., Tuple]  # state -> (state, output)
 
@@ -36,29 +37,51 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean((d * d).real)
 
 
+def _global_mean(reduce, total: torch.Tensor, count: float) -> torch.Tensor:
+    """``sum(total) / sum(count)`` over the ranks ``reduce`` sums over."""
+    both = reduce(torch.stack([total, torch.full_like(total, count)]))
+    return both[0] / both[1]
+
+
+def psum_mse(axes):
+    """MSE stop loss reduced across mesh ``axes``: the local squared-error
+    sum and element count, each summed over the axes' ranks, divided.  Every
+    rank then stops on the global loss, the unsharded stop rule (zero-padded
+    clips add zero to the sum and only rescale the ratio)."""
+    reduce = axis_sum(axes)  # the counterpart of lax.psum under shard_map
+
+    def loss(out: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        d = out - tgt
+        return _global_mean(reduce, torch.sum((d * d).real), float(out.numel()))
+
+    return loss
+
+
 def stop_loss_fn(axes=None):
-    """``loss_fn`` for the iteration drivers: the default local MSE (None).
-
-    Mesh-reduced losses belong to the parallel wrappers, which the port does
-    not have yet; ``axes`` must be empty.
-    """
-    if axes:
-        raise ValueError("loss_psum_axes needs the parallel wrappers, not ported yet")
-    return None
+    """``loss_fn`` for the iteration drivers: the mesh-reduced MSE
+    (:func:`psum_mse`) when mesh ``axes`` are given, else the default local
+    MSE (None).  Axes name the axes of the mesh bound by the caller; outside
+    one they raise."""
+    return psum_mse(axes) if axes else None
 
 
-def stats_eval_fns(metric: str, target: torch.Tensor):
+def stats_eval_fns(metric: str, target: torch.Tensor, axes=None):
     """``(loss_fn, metric_fn)`` for segments whose eval output is the pair of
     reduced sums ``[sum (|S|-tgt)^2, sum |S|^2]`` instead of the magnitude
-    plane.  The loss is the array path's MSE; the metrics follow from the
-    sums and the target's own sum of squares (SNR normalizes both sides by
-    the target norm, so it is ``-10*log10(sum_diff2 / sum_tgt2)``)."""
+    plane.  The loss is the array path's MSE, its sum and count summed over
+    mesh ``axes`` when given (as :func:`psum_mse`); the metrics follow from
+    the local sums and the target's own sum of squares (SNR normalizes both
+    sides by the target norm, so it is ``-10*log10(sum_diff2 /
+    sum_tgt2)``)."""
     get_metric(metric)
     n_local = float(target.numel())
     tgt_ss = torch.sum(torch.square(target.float()))
+    reduce = axis_sum(axes) if axes else None
 
     def loss_fn(stats, _tgt):
-        return stats[0] / n_local
+        if reduce is None:
+            return stats[0] / n_local
+        return _global_mean(reduce, stats[0], n_local)
 
     key = metric.upper()
 

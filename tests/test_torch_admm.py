@@ -199,10 +199,10 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
     backward from the plain twin.  With the launch swapped for its plain
     version on the CPU, its gradients equal plain autograd's."""
     def cpu_launch(x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag,
-                   with_loss, valid_t):
+                   with_loss, valid, count):
         x, y, mag = admm_fullrun.fused_admm_run_reference(
             x_pad, Y, target, window, inv_env, rho, cfg, n_iters, emit_state=True,
-            with_mag=True, valid_t=valid_t)
+            with_mag=True, valid_t=valid)
         return x, y, (mag if with_mag else None), None
 
     from specinv_tpu_torch.config import canonicalize
@@ -228,8 +228,10 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
             x0, y0, tgt, win, inv_env, 0.3, cfg, 3, emit_state=True, valid_t=valid_t)),
             (x0, y0, tgt))
         monkeypatch.setattr(admm_fullrun, "_launch", cpu_launch)
+        # the Function takes the frame count itself (0 above is all T)
         x, y, _mag = admm_fullrun._ADMMRun.apply(
-            x0, y0, tgt, win, inv_env, 0.3, cfg, 3, True, False, valid_t)
+            x0, y0, tgt, win, inv_env, 0.3, cfg, 3, True, False, valid_t or T,
+            admm_fullrun._count)
         g_fn = torch.autograd.grad(loss((x, y)), (x0, y0, tgt))
         for a, b in zip(g_fn, g_plain):
             torch.testing.assert_close(a, b, rtol=1e-10, atol=0)

@@ -222,3 +222,108 @@ def test_rtisi_chunk_rows_is_bitwise(dev):
         return torch.cat([o for o in outs if o is not None] + [s.flush()], dim=1)
 
     assert torch.equal(stream(chunk_rows=8), stream())
+
+
+# --- the raw per-iteration dispatch (K4, K6) ---------------------------------
+
+RAW = {
+    "gl": (gl_fullrun, "fused_gl_iteration", "fused_gl_run", 0.99 / 1.99, 5e-5),
+    "admm": (admm_fullrun, "fused_admm_iteration", "fused_admm_run", 0.1, 2e-3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAW))
+def test_raw_dispatch_is_the_normalised_one_before_its_envelope(dev, name):
+    """The raw dispatch stops at the raw overlap-add: times the envelope and
+    re-padded in PyTorch it is one whole-run launch bit for bit (the kernel
+    multiplies the same float32 sum by the same factor and copies the edge
+    samples), the state bit for bit too; and each counts one launch."""
+    mod, it, run, scalar, _ = RAW[name]
+    cfg, (x, s, tgt, win, env) = _state(dev)
+    geo = kd.make_geometry(cfg, tgt.shape[-2])
+    before = (mod.iteration_launches, mod.launches)
+    xr, sr = getattr(mod, it)(x, s, tgt, win, scalar, cfg)
+    xw, sw = getattr(mod, run)(x, s, tgt, win, env, scalar, cfg, 1, emit_state=True)
+    torch.cuda.synchronize()
+    assert (mod.iteration_launches, mod.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(sr, sw)
+    assert torch.equal(kd.repad_edges(xr * env, cfg, geo), xw)
+
+
+@pytest.mark.parametrize("name", sorted(RAW))
+def test_raw_dispatch_matches_plain_version(dev, name):
+    """Against the plain version at valid_t of all, part and none of the
+    frames (a shard of padding rows: ADMM zeroes every Y, the eval sums
+    are 0); x at the limit of the whole-run kernel (chip_smoke.py)."""
+    mod, it, _, scalar, x_limit = RAW[name]
+    cfg, (x, s, tgt, win, _) = _state(dev)
+    T = tgt.shape[-2]
+    for valid in (None, T - 5, 0):
+        flags = dict(with_mag=True, with_loss=True, valid_t=valid)
+        ours = getattr(mod, it)(x, s, tgt, win, scalar, cfg, **flags)
+        ref = getattr(mod, f"{it}_reference")(x, s, tgt, win, scalar, cfg, **flags)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ours[3], ref[3], rtol=1e-4, atol=0)
+        if valid == 0:
+            assert not bool(ours[3].any())
+            if name == "admm":  # every Y zeroed: no frame, no sample
+                assert not bool(ours[1].abs().any()) and not bool(ours[0].any())
+                continue
+        assert float((ours[0] - ref[0]).abs().max() / ref[0].abs().max()) <= x_limit
+
+
+def _golden_inputs(dev, n_fft=512, hop=128, batch=2, frames=40):
+    """Seeded float32 inputs made on the CPU with numpy, so that nothing but
+    the kernel runs on the card: x_pad, a Hermitian state, target, hann
+    window and the inverse envelope."""
+    rng = np.random.default_rng(2024)
+    cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=np.hanning(n_fft + 1)[:-1],
+                          hop_length=hop)
+    geo = kd.make_geometry(cfg, frames)
+    x = rng.standard_normal((batch, geo.lp)).astype(np.float32)
+    tgt = np.abs(rng.standard_normal((batch, frames, n_fft // 2 + 1))).astype(np.float32)
+    state = tgt * np.exp(1j * rng.uniform(0, 2 * np.pi, tgt.shape))
+    state[..., 0] = state[..., 0].real  # DC and Nyquist bins of a real signal are real
+    state[..., -1] = state[..., -1].real
+    win = torch.from_numpy(w.astype(np.float32))
+    env = kd.make_inv_env(cfg, win, frames, geo)
+    return cfg, [torch.from_numpy(a).to(dev) for a in
+                 (x, state.astype(np.complex64), tgt)] + [win.to(dev), env.to(dev)]
+
+
+def golden_digests(dev):
+    """sha256 of every output of 5 whole-run iterations (A, C) and of one
+    direct-DFT iteration at 'high' (E, F) on :func:`_golden_inputs`: the
+    launches ``ola_kernel`` serves, which its raw-overlap-add branch must
+    leave as they were."""
+    import hashlib
+
+    cfg, (x, s, tgt, win, env) = _golden_inputs(dev)
+    outs = {
+        "gl_fullrun": gl_fullrun.fused_gl_run(x, s, tgt, win, env, 0.99 / 1.99, cfg, 5,
+                                              emit_state=True, with_mag=True, with_loss=True),
+        "admm_fullrun": admm_fullrun.fused_admm_run(x, s, tgt, win, env, 0.1, cfg, 5,
+                                                    emit_state=True, with_mag=True,
+                                                    with_loss=True),
+        "gl_fused": gl_fused.fused_gl_iteration(x, s, tgt, win, env, 0.99 / 1.99, cfg,
+                                                precision="high", with_mag=True),
+        "admm_fused": admm_fused.fused_admm_iteration(x, s, tgt, win, env, 0.1, cfg, 0,
+                                                      precision="high", with_mag=True),
+    }
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes() for t in ts))
+            .hexdigest() for name, ts in outs.items()}
+
+
+# The digests of the tree before the raw-overlap-add branch was added to
+# ola_kernel (csrc/fullrun.cuh), read on an NVIDIA H100 80GB HBM3.
+GOLDEN = {
+    "gl_fullrun": "3a734c0fbd57789decdf8dd73744df8f3c2150aea03a6f8d656d3feb348cde50",
+    "admm_fullrun": "16392df541611ae71342161cc8ae00a1be179221cfdc8660f8b77d7c65454f6b",
+    "gl_fused": "8866415c642ee9a29cb991141473895a3d661c7b1aa3220736d52344ca6ffb99",
+    "admm_fused": "d07eebe77ab38a2fda278fc5fb2c0326b3058d0702a6803aeaa049f1d782e643",
+}
+
+
+def test_existing_launches_unchanged_by_the_raw_branch(dev):
+    assert golden_digests(dev) == GOLDEN

@@ -135,7 +135,7 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
     backward from the plain twin.  With the launch swapped for its plain
     version on the CPU, its gradients equal plain autograd's."""
     def cpu_launch(x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag,
-                   with_loss, valid_t):
+                   with_loss, valid, count):
         x, p, mag = gl_fullrun.fused_gl_run_reference(
             x_pad, pre, target, window, inv_env, lr, cfg, n_iters, emit_state=True,
             with_mag=True)
@@ -161,7 +161,8 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
     g_plain = torch.autograd.grad(loss(gl_fullrun.fused_gl_run_reference(
         x0, pre, tgt, win, inv_env, 0.4, cfg, 3, emit_state=True)), (x0, tgt))
     monkeypatch.setattr(gl_fullrun, "_launch", cpu_launch)
-    x, p, _mag = gl_fullrun._GLRun.apply(x0, pre, tgt, win, inv_env, 0.4, cfg, 3, True, False, 0)
+    x, p, _mag = gl_fullrun._GLRun.apply(x0, pre, tgt, win, inv_env, 0.4, cfg, 3, True, False, T,
+                                         gl_fullrun._count)
     g_fn = torch.autograd.grad(loss((x, p)), (x0, tgt))
     for a, b in zip(g_fn, g_plain):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=0)

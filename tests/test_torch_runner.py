@@ -95,6 +95,7 @@ def test_stats_eval_fns_match_jax():
 
 
 def test_bad_arguments_raise():
+    """...and mesh axes outside a bound mesh (``parallel.batched`` binds one)."""
     st = torch.zeros(())
     with pytest.raises(ValueError):
         trun.iterate(lambda s: (s, s), st, st, max_iter=3, tol=0.1, mode="scan")
@@ -102,3 +103,33 @@ def test_bad_arguments_raise():
         trun.iterate(lambda s: (s, s), st, st, max_iter=3, tol=0.1, metric="lsd")
     with pytest.raises(ValueError):
         trun.stop_loss_fn(("data",))
+
+
+def test_mesh_reduced_losses_match_jax_on_one_rank():
+    """stop_loss_fn / stats_eval_fns with mesh axes, on the bound 1x1 mesh
+    (a sum over one rank) against JAX's under shard_map on one device;
+    tests/test_torch_batch.py holds them over 4 ranks."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from specinv_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from specinv_tpu_torch.parallel import make_mesh
+    from specinv_tpu_torch.utils import collective
+
+    rng = np.random.default_rng(2)
+    out, tgt = np.abs(rng.standard_normal((2, 2, 7, 9)))
+    stats = np.array([3.5, 11.0])
+
+    def body(o, t, s):
+        loss_fn, _ = jrun.stats_eval_fns("snr", t, ("data", "seq"))
+        return jrun.stop_loss_fn(("data", "seq"))(o, t), loss_fn(s, None)
+
+    ref = jax.shard_map(body, mesh=jmake_mesh(data=1, seq=1), in_specs=(P(), P(), P()),
+                        out_specs=(P(), P()), check_vma=False)(
+        jnp.asarray(out), jnp.asarray(tgt), jnp.asarray(stats))
+    with collective.bound(make_mesh(device="cpu")):
+        mse = trun.stop_loss_fn(("data", "seq"))(torch.from_numpy(out), torch.from_numpy(tgt))
+        loss_fn, _ = trun.stats_eval_fns("snr", torch.from_numpy(tgt), ("data", "seq"))
+        stats_loss = loss_fn(torch.from_numpy(stats), None)
+    assert float(mse) == pytest.approx(float(ref[0]), rel=1e-14)
+    assert float(stats_loss) == pytest.approx(float(ref[1]), rel=1e-14)

@@ -157,3 +157,27 @@ def test_array_input_without_card_raises(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ValueError, match="pass a CPU tensor"):
         _call_entry(name, lambda a: a)
+
+
+@pytest.mark.parametrize("n", [2048, 400, 255])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_real_ends_only_moves_what_the_cpu_irfft_ignores(n, dtype):
+    """``fourier.inverse`` zeroes the imaginary parts of the DC and Nyquist
+    bins only on the card: the CPU's ``irfft`` never reads them, so there
+    the zeroed and the raw spectrum give the same bits, and their gradients
+    agree; the mask touches nothing else."""
+    from specinv_tpu_torch.ops import fourier
+
+    gen = torch.Generator().manual_seed(n)
+    spec = torch.randn(3, 17, n // 2 + 1, dtype=dtype, generator=gen)
+    ends = fourier._real_ends(spec, n)
+    changed = (ends != spec).any(dim=(0, 1))
+    assert changed.nonzero().flatten().tolist() == ([0, n // 2] if n % 2 == 0 else [0])
+    assert not ends.imag[..., 0].any() and torch.equal(ends.real, spec.real)
+    assert torch.equal(torch.fft.irfft(ends, n=n), torch.fft.irfft(spec, n=n))
+    grads = []
+    for f in (lambda s: fourier._real_ends(s, n), lambda s: s):
+        s = spec.clone().requires_grad_()
+        torch.fft.irfft(f(s), n=n).square().sum().backward()
+        grads.append(s.grad)
+    assert torch.equal(*grads)
