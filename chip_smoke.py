@@ -26,10 +26,11 @@ without them.  Phases, each of which raises on failure:
    and the C7 geometries 400/160, 512/160, 1024/240), 1 and 5 iterations,
    each beside a float64 run of the plain version; the RTISI-LA kernel
    (``csrc/rtisi_fused.cu``) over 8 steps from a real mid-clip state at
-   config 3 (batch 1 and 16) and at small geometries (batch 2), each step
-   a one-step launch from the plain version's state beside a float64 run
-   of the plain step, and a launch of 8 steps bit for bit against 8
-   one-step launches; the raw per-iteration dispatch of the whole-run
+   config 3 (batch 1 and 16) and at small geometries (batch 2), from the
+   states of ``chip_smoke_rtisi_states.npz``, each step a one-step launch
+   from the plain version's state beside a float64 run of the plain step,
+   and a launch of 8 steps bit for bit against 8 one-step launches; the raw
+   per-iteration dispatch of the whole-run
    kernels (the port of ``gl_fused4._kernel`` and
    ``admm_fused4._kernel_iter``) at the world-1 shape of the 10-minute clip
    (25843 frames, ``valid_t`` 25840), at its world-2 shards (12922 frames;
@@ -66,11 +67,13 @@ without them.  Phases, each of which raises on failure:
    iteration beside cuBLAS bf16 products of the same shapes, a yardstick
    the port never calls); RTISI-LA microseconds per output frame of both
    paths at batch 1 and 16 (a 10 s against a 5 s clip), microseconds per
-   streamer push, and the RTISI kernel against its plain version per
-   launch; the seq paths' marginal microseconds per iteration (kernel, fft,
-   world 1 and 2; world 2 time-shares the card, so it is the exchange's
-   cost), the batched rate, and one raw launch at the world-1 shape and at
-   the shard against its plain version.
+   streamer push, and the RTISI kernel per launch of 8 steps at batch 1
+   and 16 (against its plain version at batch 1), beside its bound over
+   the whole card and over the SMs of one stream's thread-block cluster;
+   the seq paths' marginal microseconds per iteration (kernel, fft, world 1
+   and 2; world 2 time-shares the card, so it is the exchange's cost), the
+   batched rate, and one raw launch at the world-1 shape and at the shard
+   against its plain version.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the one
 before it a JSON object with each kernel's launches, error, times and bound;
@@ -159,6 +162,38 @@ RTISI_LIMITS = {
     16: {"committed": 2e-2, "keeped": 9e-3, "update": 5e-2, "pre": 5e-2},
 }
 RTISI_SMALL_LIMITS = {"committed": 2e-5, "keeped": 2e-5, "update": 3e-3, "pre": 2e-3}
+# The small geometries, batch 2, hamming unless named: every pad mode,
+# center False, asymmetric windows, look-ahead 0 and 7, normalized, a hop
+# that does not divide n_fft, the largest n_fft.  At hop == n_fft a frame
+# meets no neighbour, so under a tapered window its phase is pinned only
+# where the window is large: from one step on the card, the plain float32
+# step lay 6.8e-1 (committed frame) and 1.1 (momentum) of the max from
+# float64 under hann, the kernel 8.2e-2 and 1.1e-1 (same card).  A
+# rectangular window makes every frame's spectrum consistent, so the
+# comparison there measures the kernel's arithmetic.
+RTISI_SMALL = [*((512, 128, dict(pad_mode=m)) for m in ("reflect", "constant", "replicate",
+                                                          "circular")),
+               (512, 128, dict(center=False)), (512, 128, dict(asym=True)),
+               (512, 128, dict(look_ahead=0)), (512, 512, dict(window="ones")),
+               (512, 128, dict(normalized=True)), (512, 160, dict(asym=True)),
+               (4096, 1024, dict(asym=True)), (256, 32, dict(look_ahead=7))]
+# The checks' starting states, the ones those limits were derived at: config
+# 3 after 100 steps (batch 1 and 16) and each small geometry after its i0
+# steps (12; 0 at hop == n_fft), as the kernel of commit 789c5b1 (one block
+# per stream, a complex radix-2 FFT in float32) reached them from the
+# zero-phase seed; the plain float32 version lies as far from float64 there
+# as the comments above record, and scripts/torch_rtisi_check_states.py
+# rebuilds them from a checkout of that commit.  The checks do not start
+# from the state the kernel under test reaches: that state moves with every
+# rounding of the steps before it, and the limits hold only where they were
+# derived.  Elsewhere a step can sit where one float32 rounding decides some
+# bins' phases, so that the kernel or the plain float32 version lands far
+# outside the limits from float64 while float64 itself moves as far under
+# a perturbation of one rounding (scripts/torch_rtisi_phases.py, section 2).
+# Keys: cfg3_b{1,16}_* and small{i}_* (i indexes RTISI_SMALL), * = keep,
+# upd, pre.
+RTISI_STATES = ROOT / "chip_smoke_rtisi_states.npz"
+RTISI_STATES_SHA256 = "08386d5d549e2b13ae33c0b3eb202bdb51211f43fdac57a5cd54798a11f32eca"
 # Final SC (dB) of RTISI_LA's kernel path against its torch.fft path, and
 # the quality ceiling.  scripts/torch_profile.py runs config 3 on 16 clips:
 # the float64 fft path ended at -22.49 dB or below on each, and the float32
@@ -234,6 +269,7 @@ C7_N_FFT, C7_HOP = 400, 160
 # memory bandwidth, FP32 rate outside the tensor cores and dense bf16 rate
 # of the tensor cores.
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
+PEAK_FP64_FLOPS = 34e12  # outside the tensor cores (NVIDIA's data sheet, SXM)
 # bf16 tensor-core passes of each direct-DFT tier ('highest' is float32)
 DFT_PASSES = {"default": 1, "high": 3, "bf16x2": 2, "bf16x2t": 2, "highest": 1}
 
@@ -400,11 +436,13 @@ def check_kernel(label, mod, run, scalar, cfg, state, n_iters, limits):
     return abs_err(x, rx)
 
 
-def bound(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
+def bound(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS, fp64_flops: float = 0.0):
     """The least time the card could take for work that moves ``n_bytes``
-    and does ``flops`` operations at the rate ``peak`` (FP32 unless given):
-    ``(ms, "bytes" or "operations")``."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / peak
+    and does ``flops`` operations at the rate ``peak`` (FP32 unless given)
+    beside ``fp64_flops`` FP64 operations (their own units, so the larger
+    of the two times counts): ``(ms, "bytes" or "operations")``."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = max(flops / peak, fp64_flops / PEAK_FP64_FLOPS)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -430,10 +468,11 @@ def event_ms(fn) -> float:
 
 
 def rtisi_state(n_fft, hop, n_samples, batch, dev, window="hann", look_ahead=-1,
-                asym=False, **stft_kwargs):
-    """RTISI-LA's starting state for ``batch`` speech-like clips: the padded
-    target ``(B, T + 2 la, F)``, the windows and ``(keeped, update, pre)``
-    with the zero-phase seed as the newest in-flight frame."""
+                asym=False, seed0=0, **stft_kwargs):
+    """RTISI-LA's starting state for ``batch`` speech-like clips (seeds
+    ``seed0`` onwards): the padded target ``(B, T + 2 la, F)``, the windows
+    and ``(keeped, update, pre)`` with the zero-phase seed as the newest
+    in-flight frame."""
     import importlib
 
     from specinv_tpu_torch.config import canonicalize
@@ -444,7 +483,7 @@ def rtisi_state(n_fft, hop, n_samples, batch, dev, window="hann", look_ahead=-1,
     win_np = {"hann": np.hanning, "hamming": np.hamming, "ones": np.ones}[window](n_fft + 1)[:-1]
     cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=win_np.astype(np.float32),
                           hop_length=hop, **stft_kwargs)
-    clips = np.stack([make_speech_like(n_samples, seed=s) for s in range(batch)])
+    clips = np.stack([make_speech_like(n_samples, seed=seed0 + s) for s in range(batch)])
     win = torch.from_numpy(w).to(dev)
     mag = stft_ops.stft(torch.from_numpy(clips.astype(np.float32)).to(dev), cfg, win).abs()
     num_keep = (n_fft - 1) // hop
@@ -455,15 +494,29 @@ def rtisi_state(n_fft, hop, n_samples, batch, dev, window="hann", look_ahead=-1,
     return cfg, la, target, rt.rtisi_windows(win, cfg, asym), state
 
 
-def rtisi_advance(cfg, la, target, windows, state, steps, k=8):
-    """Run ``steps`` steps through the kernel, ``k`` per launch."""
-    from specinv_tpu_torch.ops.cuda import rtisi_fused
+def rtisi_check_states(dev) -> dict:
+    """The checks' starting states (``RTISI_STATES``), digest checked:
+    ``name -> (keeped, update, pre)`` on ``dev``."""
+    import hashlib
 
-    for i0 in range(0, steps, k):
-        n = min(k, steps - i0)
-        _, *state = rtisi_fused.fused_rtisi_steps(*state, target[:, i0 : i0 + n + la], windows,
-                                                  0.99 / 1.99, cfg, RTISI_ITERS)
-    return tuple(state)
+    data = RTISI_STATES.read_bytes()
+    if hashlib.sha256(data).hexdigest() != RTISI_STATES_SHA256:
+        raise AssertionError(f"{RTISI_STATES.name}: unexpected contents")
+    with np.load(RTISI_STATES) as npz:
+        names = {key.rsplit("_", 1)[0] for key in npz.files}
+        return {name: tuple(torch.from_numpy(npz[f"{name}_{part}"]).to(dev)
+                            for part in ("keep", "upd", "pre")) for name in names}
+
+
+def frozen_state(states: dict, name: str, fresh) -> tuple:
+    """``states[name]``, which must match the layout of ``fresh`` (the state
+    ``rtisi_state`` starts from)."""
+    state = states[name]
+    for ours, ref in zip(state, fresh):
+        if ours.shape != ref.shape or ours.dtype != ref.dtype:
+            raise AssertionError(f"{name}: stored {ours.dtype} {tuple(ours.shape)}, expected "
+                                 f"{ref.dtype} {tuple(ref.shape)}")
+    return state
 
 
 def check_rtisi(label, cfg, la, target, windows, state, i0, limits, k=8):
@@ -921,33 +974,22 @@ def smoke(clip_job, batch_jobs) -> None:
     print(f"[3] rtisi_fused.cu: 8 single steps from a real state, then a launch of 8 "
           f"{since()}", flush=True)
     rtisi_err, rtisi_mid = 0.0, {}
+    rtisi_states = rtisi_check_states(dev)
     for batch in (1, 16):  # config 3, from step 100 of the clip
         cfg3, la3, tgt3, win3, st3 = rtisi_state(N_FFT, HOP, N_SAMPLES, batch, dev)
         if tgt3.shape != (batch, 431 + 2 * RTISI_LA_FRAMES, 1025):
             raise AssertionError(f"config 3 target shape {tuple(tgt3.shape)}")
-        st3 = rtisi_advance(cfg3, la3, tgt3, win3, st3, 100)
+        st3 = frozen_state(rtisi_states, f"cfg3_b{batch}", st3)
         rtisi_mid[batch] = (cfg3, la3, tgt3, win3, st3)
         rtisi_err = max(rtisi_err, check_rtisi(f"config 3, B={batch}", cfg3, la3, tgt3, win3,
                                                st3, 100, RTISI_LIMITS[batch]))
     # Small geometries at batch 2 under a hamming window, from step 12 (step
     # 0 where frames do not overlap: then only the first frame is seeded).
-    # At hop == n_fft a frame meets no neighbour, so under a tapered window
-    # its phase is pinned only where the window is large: from one step on
-    # the card, the plain float32 step lay 6.8e-1 (committed frame) and 1.1
-    # (momentum) of the max from float64 under hann, the kernel 8.2e-2 and
-    # 1.1e-1 (same card).  A rectangular window makes every frame's spectrum
-    # consistent, so the comparison there measures the kernel's arithmetic.
-    rtisi_small = [(512, 128, dict(pad_mode=m)) for m in ("reflect", "constant", "replicate",
-                                                          "circular")]
-    rtisi_small += [(512, 128, dict(center=False)), (512, 128, dict(asym=True)),
-                    (512, 128, dict(look_ahead=0)), (512, 512, dict(window="ones")),
-                    (512, 128, dict(normalized=True)), (512, 160, dict(asym=True)),
-                    (4096, 1024, dict(asym=True)), (256, 32, dict(look_ahead=7))]
-    for n_fft, hop, extra in rtisi_small:
+    for idx, (n_fft, hop, extra) in enumerate(RTISI_SMALL):
         extra = {"window": "hamming", **extra}
         cfg, la, tgt, win, state = rtisi_state(n_fft, hop, max(7800, 8 * n_fft), 2, dev, **extra)
         i0 = 0 if hop == n_fft else 12
-        state = rtisi_advance(cfg, la, tgt, win, state, i0)
+        state = frozen_state(rtisi_states, f"small{idx}", state)
         rtisi_err = max(rtisi_err, check_rtisi(f"{n_fft}/{hop} {extra}", cfg, la, tgt, win,
                                                state, i0, RTISI_SMALL_LIMITS))
 
@@ -1373,18 +1415,26 @@ def smoke(clip_job, batch_jobs) -> None:
         print(f"  streamer, B={batch}: {push_ms / n_push * 1000:.2f} us per push "
               f"({batch * n_push / push_ms * 1000:.1f} frames/s) on {smi}", flush=True)
 
+    rtisi_launch_ms = {}
+    for batch in (1, 16):
+        cfg3, la3, tgt3, win3, st3 = rtisi_mid[batch]
+        tgt8 = tgt3[:, 100 : 108 + la3].contiguous()
+        rtisi_launch_ms[batch] = time_ms(lambda: rtisi_fused.fused_rtisi_steps(
+            *st3, tgt8, win3, lr, cfg3, RTISI_ITERS), 10)
+        print(f"  rtisi_fused.cu, one launch of 8 steps at config 3, B={batch}: "
+              f"{rtisi_launch_ms[batch] * 1000:.1f} us, "
+              f"{rtisi_launch_ms[batch] * 1000 / 8:.2f} us per step on {smi}", flush=True)
+    rtisi_ms = rtisi_launch_ms[1]  # B = 1 from here on: the kernels line's shape
     cfg3, la3, tgt3, win3, st3 = rtisi_mid[1]
     tgt8 = tgt3[:, 100 : 108 + la3].contiguous()
-    rtisi_ms = time_ms(lambda: rtisi_fused.fused_rtisi_steps(*st3, tgt8, win3, lr, cfg3,
-                                                             RTISI_ITERS), 10)
     rtisi_plain_ms = time_ms(lambda: rtisi_fused.fused_rtisi_steps_reference(
         *st3, tgt8, win3, lr, cfg3, RTISI_ITERS), 2)
-    print(f"  rtisi_fused.cu, one launch of 8 steps at config 3, B=1: {rtisi_ms * 1000:.1f} us "
-          f"vs plain {rtisi_plain_ms * 1000:.1f} us on {smi} {since()}", flush=True)
+    print(f"  rtisi plain version, 8 steps at B=1: {rtisi_plain_ms * 1000:.1f} us {since()}",
+          flush=True)
 
     # Bounds: the bytes each function must move (inputs read once, outputs
-    # written once) over the memory rate, or its FP32 operations over the
-    # FP32 rate, whichever is larger.  GL and ADMM: one iteration of the
+    # written once) over the memory rate, or its operations over the rate of
+    # their type (FP32; FP64 for D's transforms), whichever is larger.  GL and ADMM: one iteration of the
     # 100-iteration call that was timed, so the call's bytes count 1/100.
     T1, F1, lp1 = tgt.shape[-2], tgt.shape[-1], x_pad.shape[-1]
     call_bytes = nbytes(x_pad, seed, tgt, win, inv_env, fft.twiddles(N_FFT, dev)) + nbytes(x_pad, seed)
@@ -1394,15 +1444,22 @@ def smoke(clip_job, batch_jobs) -> None:
     fft_bound = bound(2 * nbytes(frames) + 2 * nbytes(spec_k), 2 * frames.shape[0] * fft_flops(N_FFT))
     k8, R3, nk3 = 8, la3 + 1, st3[0].shape[1]
     rtisi_out = rtisi_fused.fused_rtisi_steps(*st3, tgt8, win3, lr, cfg3, RTISI_ITERS)
-    rtisi_flops = k8 * (RTISI_ITERS * R3 * (2 * fft_flops(N_FFT) + 14 * (N_FFT // 2 + 1)
-                                            + 4 * N_FFT) + 2 * nk3 * N_FFT)
-    rtisi_bound = bound(nbytes(*st3, tgt8, *win3, fft.twiddles(N_FFT, dev)) + nbytes(*rtisi_out),
-                        rtisi_flops)
-    # one block per stream: at B = 1 the kernel has one SM, 1/n_sm of the peak
+    # D's transforms run in FP64 (rfft.cuh), the rest of a refinement in FP32
+    rtisi_fft_flops = k8 * RTISI_ITERS * R3 * 2 * fft_flops(N_FFT)
+    rtisi_flops = k8 * (RTISI_ITERS * R3 * (14 * (N_FFT // 2 + 1) + 4 * N_FFT) + 2 * nk3 * N_FFT)
+    rtisi_bound = bound(nbytes(*st3, tgt8, *win3, fft.twiddles(N_FFT, dev, torch.complex128))
+                        + nbytes(*rtisi_out), rtisi_flops, fp64_flops=rtisi_fft_flops)
+    # one thread-block cluster per stream: at B = 1 the kernel has the
+    # cluster's SMs, plan.cluster / n_sm of each peak
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    rtisi_sm_us = rtisi_flops / k8 / (PEAK_FP32_FLOPS / n_sm) * 1e6
+    rtisi_plan = rtisi_fused.plan(N_FFT, R3)
+    rtisi_cluster_us = max(rtisi_flops / PEAK_FP32_FLOPS, rtisi_fft_flops / PEAK_FP64_FLOPS) \
+        / k8 * n_sm / rtisi_plan.cluster * 1e6
     print(f"  bounds (ms): gl {gl_bound}, admm {admm_bound}, fft {fft_bound}, rtisi {rtisi_bound}"
-          f"; rtisi operations per step on one of {n_sm} SMs: {rtisi_sm_us} us", flush=True)
+          f" (whole card, a launch of 8 steps); rtisi operations per step over one stream's "
+          f"cluster of {rtisi_plan.cluster} of {n_sm} SMs: {rtisi_cluster_us} us "
+          f"({rtisi_launch_ms[1] * 1000 / 8 / rtisi_cluster_us:.1f}x at B=1); plan "
+          f"{rtisi_plan}", flush=True)
 
     def dft_bound(tier):
         """One direct-DFT iteration at config 1: each input read once (x,
@@ -1488,18 +1545,20 @@ def smoke(clip_job, batch_jobs) -> None:
                      "specinv_tpu/ops/pallas/admm_fused4.py:275",
          "launches": admm_launches, "max_abs_err": admm_err,
          **timing(admm_ms, admm_plain_ms, admm_bound)},
-        # fft.cuh runs inside every gl_fullrun, admm_fullrun and rtisi_fused
-        # launch; its library call is torch.fft.rfft + irfft
+        # fft.cuh runs inside every gl_fullrun and admm_fullrun launch (the
+        # RTISI kernel has its own transform, rfft.cuh); its library call is
+        # torch.fft.rfft + irfft
         {"name": "fft", "route": "cuda", "source": "specinv_tpu_torch/csrc/fft.cuh",
          "replaces": "specinv_tpu/ops/pallas/fft4.py:322",
-         "launches": gl_launches + admm_launches + rtisi_launches + stream_launches,
+         "launches": gl_launches + admm_launches,
          "max_abs_err": fft_err, **timing(fft_ms, fft_plain_ms, fft_bound, fft_plain_ms)},
-        # launches: RTISI_LA's and then the streamer's, on the main path
+        # launches: RTISI_LA's and then the streamer's, on the main path; ms
+        # and bound: one launch of 8 steps at B = 1; plan: its cluster
         {"name": "rtisi_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/rtisi_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/rtisi_fused4.py:274; "
                      "specinv_tpu/ops/pallas/rtisi_fused4.py:61",
          "launches": rtisi_launches + stream_launches, "max_abs_err": rtisi_err,
-         **timing(rtisi_ms, rtisi_plain_ms, rtisi_bound)},
+         **timing(rtisi_ms, rtisi_plain_ms, rtisi_bound), "plan": rtisi_plan._asdict()},
         # one iteration at config 1 in the default tier (HIGH); launches: the
         # 'dft' main path's (the 400/160 'auto' drive launched it too)
         {"name": "gl_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fused.cu",

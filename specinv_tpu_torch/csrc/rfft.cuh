@@ -1,0 +1,259 @@
+// Real FFT at half length for the port's kernels: an n-point real frame
+// transformed as an h = n/2-point complex FFT in Stockham radix-8/4/2 stages
+// held in registers, with the standard split passes around it, in FP64.
+//
+// Forward: the frame x (n real points) is packed as z[m] = x[2m] + i x[2m+1]
+// (m < h), Z = FFT_h(z), and the split post-pass gives the onesided
+// spectrum X[k], k = 0 .. h, from Z[k] and Z[h-k] (split_forward).  Inverse:
+// the split pre-pass packs a onesided spectrum Y into Z'[k] (split_inverse),
+// whose unscaled inverse h-point DFT is n (x[2m] + i x[2m+1]); it returns
+// conj(Z'), so the same forward stages compute the inverse, and the caller
+// reads x[2m] = Re r[m], x[2m+1] = -Im r[m] (times its scale).  Like numpy's
+// irfft and cuFFT's C2R, the inverse ignores the imaginary parts of Y[0] and
+// Y[h]: the caller zeroes them.
+//
+// Stages: Stockham autosort (Govindaraju et al., SC 2008), natural order in
+// and out, out of place between two buffers of h points per frame, radix 8
+// while three or more factors of two remain, then one radix-4 or radix-2
+// stage.  A thread loads one butterfly's R points, twiddles them, runs the
+// R-point DFT in registers and stores them; the block waits at one barrier
+// per stage (ceil(log2(h) / 3) stages, 4 at h = 1024, against 11 radix-2
+// stages and a permutation in fft.cuh), and the last stage hands its
+// outputs to the caller's epilogue instead of a buffer.
+//
+// Precision: the points, twiddles and arithmetic are FP64 (the caller
+// rounds what goes in and comes out to float32), so the transform adds
+// about 1e-16 of relative error where a float32 FFT adds about 1e-7.
+// RTISI-LA's refinements amplify rounding in the bins where |S| is small:
+// with a float32 transform as accurate as cuFFT's, the RTISI kernel lay as
+// far from a float64 run as the float32 plain version; with this one it
+// lies about ten times closer at config 3 (chip_smoke's readings).  The
+// card's FP64 rate is half its FP32 rate, and these transforms are bound by
+// latency and barriers, not by operations.
+//
+// Layout: a buffer of h points keeps point i at at(i) = i + i / 8 (one
+// padding point after every eight), so that the first stage's stores, eight
+// points apart across threads, fall in distinct banks; buffers are
+// padded(h) points long.
+//
+// Twiddles: tw[j] = exp(-2 pi i j / n), j < n/2, computed in float64 on the
+// host and kept in float64, here read from shared memory: exp(-2 pi i m / h)
+// is tw[2m], or -tw[2m - h] past a half turn; a butterfly reads w = w^1 and
+// forms w^2 .. w^(R-1) by products (FP64: each adds about 1e-16), and the
+// split passes take exp(-2 pi i k / n) = tw[k] directly.  The same code on
+// the same inputs gives the same bits wherever it runs.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace specinv {
+namespace rfft {
+
+__device__ __forceinline__ double2 add(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ double2 sub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ double2 mul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// a * conj(b)
+__device__ __forceinline__ double2 mul_conj(double2 a, double2 b) {
+  return make_double2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+
+// -i * a
+__device__ __forceinline__ double2 mul_neg_i(double2 a) { return make_double2(a.y, -a.x); }
+
+// The skewed position of point i in a buffer, and a buffer's length.
+__host__ __device__ __forceinline__ int at(int i) { return i + (i >> 3); }
+__host__ __device__ __forceinline__ int padded(int h) { return h + (h >> 3); }
+
+// exp(-2 pi i m / h), m < h, from the n/2-entry table of exp(-2 pi i j / n)
+__device__ __forceinline__ double2 twiddle(const double2* tw, int m, int h) {
+  const int j = 2 * m;
+  if (j < h) return tw[j];
+  const double2 t = tw[j - h];
+  return make_double2(-t.x, -t.y);
+}
+
+// R-point forward DFTs in registers, natural order in and out.
+__device__ __forceinline__ void dft2(double2* v) {
+  const double2 a = v[0];
+  v[0] = add(a, v[1]);
+  v[1] = sub(a, v[1]);
+}
+
+__device__ __forceinline__ void dft4(double2& v0, double2& v1, double2& v2, double2& v3) {
+  const double2 t0 = add(v0, v2), t1 = sub(v0, v2);
+  const double2 t2 = add(v1, v3), t3 = mul_neg_i(sub(v1, v3));
+  v0 = add(t0, t2);
+  v2 = sub(t0, t2);
+  v1 = add(t1, t3);
+  v3 = sub(t1, t3);
+}
+
+__device__ __forceinline__ void dft8(double2* v) {
+  constexpr double c = 0.70710678118654752440;  // cos(pi / 4)
+  double2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  double2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+  dft4(e0, e1, e2, e3);
+  dft4(o0, o1, o2, o3);
+  // X[k] = E[k] + W8^k O[k], X[k + 4] = E[k] - W8^k O[k], W8 = exp(-i pi / 4)
+  o1 = make_double2(c * (o1.x + o1.y), c * (o1.y - o1.x));
+  o2 = mul_neg_i(o2);
+  o3 = make_double2(c * (o3.y - o3.x), -c * (o3.x + o3.y));
+  v[0] = add(e0, o0);
+  v[4] = sub(e0, o0);
+  v[1] = add(e1, o1);
+  v[5] = sub(e1, o1);
+  v[2] = add(e2, o2);
+  v[6] = sub(e2, o2);
+  v[3] = add(e3, o3);
+  v[7] = sub(e3, o3);
+}
+
+template <int R>
+__device__ __forceinline__ void dft(double2* v) {
+  if constexpr (R == 8) {
+    dft8(v);
+  } else if constexpr (R == 4) {
+    dft4(v[0], v[1], v[2], v[3]);
+  } else {
+    dft2(v);
+  }
+}
+
+// Stages of an h-point FFT: radix 8 while three or more factors of two
+// remain, then one radix-4 or radix-2 stage.
+__host__ __device__ __forceinline__ int stages(int log2h) { return (log2h + 2) / 3; }
+
+// A stage's output: point i of frame f stored (skewed) in a buffer whose
+// frames lie `stride` points apart.
+struct Store {
+  double2* dst;
+  int stride;
+  __device__ __forceinline__ void operator()(int f, int i, double2 v) const {
+    dst[f * stride + at(i)] = v;
+  }
+};
+
+// w^1 .. w^(R-1) from w, by products in a tree of depth 3 (w^2, w^4 and the
+// odd powers from them).
+template <int R>
+__device__ __forceinline__ void powers(double2 w, double2* wr) {
+  wr[1] = w;
+  if constexpr (R > 2) {
+    wr[2] = mul(w, w);
+    wr[3] = mul(wr[2], w);
+  }
+  if constexpr (R > 4) {
+    wr[4] = mul(wr[2], wr[2]);
+    wr[5] = mul(wr[4], w);
+    wr[6] = mul(wr[4], wr[2]);
+    wr[7] = mul(wr[4], wr[3]);
+  }
+}
+
+// One Stockham stage of radix R over `frames` frames of h = 2^log2h points
+// (skewed) in src, the frames `stride` points apart; ns = 2^log2ns is the
+// product of the earlier stages' radices.  Output point i of frame f goes
+// to out(f, i, value).  No barrier.
+template <int R, class Out>
+__device__ __forceinline__ void stage(const double2* src, int stride, const double2* tw,
+                                      int log2h, int log2ns, int frames, const Out& out) {
+  constexpr int log2r = R == 8 ? 3 : (R == 4 ? 2 : 1);
+  const int h = 1 << log2h;
+  const int log2nb = log2h - log2r;  // butterflies per frame: h / R
+  const int ns = 1 << log2ns;
+  const int tstep = log2h - log2ns - log2r;  // twiddle index k * h / (ns * R)
+  for (int q = threadIdx.x; q < frames << log2nb; q += blockDim.x) {
+    const int f = q >> log2nb;
+    const int j = q & ((1 << log2nb) - 1);
+    const double2* in = src + f * stride;
+    double2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = in[at(j + (r << log2nb))];
+    const int k = j & (ns - 1);
+    if (ns > 1) {
+      double2 wr[R];
+      powers<R>(twiddle(tw, k << tstep, h), wr);
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = mul(v[r], wr[r]);
+    }
+    dft<R>(v);
+    const int base = ((j - k) << log2r) + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) out(f, base + (r << log2ns), v[r]);
+  }
+}
+
+template <class Out>
+__device__ __forceinline__ void run_stage(int log2r, const double2* src, int stride,
+                                          const double2* tw, int log2h, int log2ns, int frames,
+                                          const Out& out) {
+  if (log2r == 3) {
+    stage<8>(src, stride, tw, log2h, log2ns, frames, out);
+  } else if (log2r == 2) {
+    stage<4>(src, stride, tw, log2h, log2ns, frames, out);
+  } else {
+    stage<2>(src, stride, tw, log2h, log2ns, frames, out);
+  }
+}
+
+// Forward h-point complex FFT (unscaled) of `frames` frames held in a, the
+// frames `stride` points apart, with b (same layout) as the other buffer of
+// the ping-pong; the last stage hands its outputs to last(f, i, value)
+// (Store{a or b, stride} keeps them: b when stages(log2h) is odd, else a).
+// Expects a barrier before the call; waits at one after each stage but the
+// last.
+template <class Last>
+__device__ inline void fft(double2* a, double2* b, const double2* tw, int log2h, int frames,
+                           int stride, const Last& last) {
+  double2* src = a;
+  double2* dst = b;
+  for (int bits = log2h, log2ns = 0; bits > 0;) {
+    const int log2r = bits >= 3 ? 3 : bits;
+    if (log2r == bits) {
+      run_stage(log2r, src, stride, tw, log2h, log2ns, frames, last);
+      return;
+    }
+    run_stage(log2r, src, stride, tw, log2h, log2ns, frames, Store{dst, stride});
+    __syncthreads();
+    double2* t = src;
+    src = dst;
+    dst = t;
+    bits -= log2r;
+    log2ns += log2r;
+  }
+}
+
+// Split post-pass for 0 <= k <= h/2: from zk = Z[k], zc = Z[(h - k) mod h]
+// and w = exp(-2 pi i k / n), the unscaled onesided bins X[k] and X[h - k]
+// (at k = 0: X[0] and X[h], both real).
+__device__ __forceinline__ void split_forward(double2 zk, double2 zc, double2 w, double2& xk,
+                                              double2& xc) {
+  const double2 e = make_double2(0.5 * (zk.x + zc.x), 0.5 * (zk.y - zc.y));  // (zk + zc*) / 2
+  const double2 d = make_double2(0.5 * (zk.x - zc.x), 0.5 * (zk.y + zc.y));  // (zk - zc*) / 2
+  const double2 wo = mul(w, mul_neg_i(d));
+  xk = add(e, wo);
+  xc = make_double2(e.x - wo.x, wo.y - e.y);  // conj(e - wo)
+}
+
+// Split pre-pass for 0 <= k <= h/2: from the onesided bins yk = Y[k] and
+// yc = Y[h - k] (real at k = 0) and w = exp(-2 pi i k / n), conj(Z'[k]) and
+// conj(Z'[h - k]) of the packed spectrum (see the header).
+__device__ __forceinline__ void split_inverse(double2 yk, double2 yc, double2 w, double2& zk,
+                                              double2& zc) {
+  const double2 e = make_double2(yk.x + yc.x, yk.y - yc.y);  // yk + yc*
+  const double2 o = mul_conj(make_double2(yk.x - yc.x, yk.y + yc.y), w);  // (yk - yc*) w*
+  zk = make_double2(e.x - o.y, -(e.y + o.x));  // conj(e + i o)
+  zc = make_double2(e.x + o.y, e.y - o.x);     // conj(e* + i o*)
+}
+
+}  // namespace rfft
+}  // namespace specinv

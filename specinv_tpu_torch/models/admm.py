@@ -42,7 +42,7 @@ from ..ops.stft import istft, make_envelope, stft
 from ..utils.runner import iterate, stop_loss_fn
 from ._kernel_driver import make_geometry, make_inv_env, run_kernel_loop
 from .common import prepare_spec_b3, restore_output
-from .griffin_lim import check_args, magnitude_project, resolve_backend
+from .griffin_lim import check_args, check_pack, magnitude_project, resolve_backend
 from .phase_init import phase_init_tm
 
 
@@ -208,16 +208,17 @@ def ADMM(
     ``backend`` ('auto'/'kernel'/'dft'/'fft'), ``precision`` and ``remat``
     as on :func:`griffin_lim`, except that ``'dft'`` takes one precision
     tier, not a ``(forward, inverse)`` pair (see the module docstring);
-    ``loss_psum_axes`` as on :func:`griffin_lim`; ``pack`` must stay unset.
+    ``loss_psum_axes`` and ``pack`` as on :func:`griffin_lim`.
     """
     if not (eva_iter > 0 and max_iter > 0 and tol >= 0):
         raise ValueError(
             f"need eva_iter > 0, max_iter > 0 and tol >= 0 "
             f"(got {eva_iter}, {max_iter}, {tol})"
         )
-    check_args(stft_kwargs, loss_psum_axes, pack)
+    check_args(stft_kwargs, loss_psum_axes)
     spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
     backend = resolve_backend(backend, cfg, window, spec_b3.device, spec_b3.is_complex())
+    check_pack(pack, backend, spec_b3.shape[0])
     precision = dft.check_precision(precision, backend)
     x = _full_run(
         spec_b3, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,

@@ -30,6 +30,8 @@ the CPU ``'auto'`` is ``'fft'``.
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from ..config import STFT_KWARG_NAMES, STFTConfig
@@ -199,17 +201,30 @@ def resolve_backend(backend: str, cfg: STFTConfig, window, device,
     return backend
 
 
-def check_args(stft_kwargs, loss_psum_axes, pack) -> None:
+def check_args(stft_kwargs, loss_psum_axes) -> None:
     """The backend-free argument checks ``griffin_lim`` and ``ADMM`` share.
     ``loss_psum_axes`` must name axes of the mesh the caller bound
-    (``parallel.batched``); ``pack`` folds clips into the TPU kernel's grid
-    and has no counterpart here."""
+    (``parallel.batched``)."""
     unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
     if unknown:
         raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
-    if pack is not None:
-        raise ValueError("pack folds clips into TPU grid steps; the port has no such option")
     stop_loss_fn(loss_psum_axes)
+
+
+def check_pack(pack, backend: str, batch: int) -> None:
+    """JAX's rule for ``pack`` on the resolved backend.  The TPU kernel
+    folds ``pack`` clips into each grid step, bitwise invariant; here one
+    launch already covers every clip, so on ``'kernel'`` (the JAX
+    ``'pallas4'``) a valid ``pack`` changes nothing.  Elsewhere it raises."""
+    if pack is None:
+        return
+    if backend != "kernel":
+        raise ValueError(
+            f"pack applies to the whole-run pallas4 kernel only (the port's 'kernel'; "
+            f"resolved backend here: {backend!r})"
+        )
+    if isinstance(pack, bool) or not isinstance(pack, numbers.Integral) or pack < 1 or batch % pack:
+        raise ValueError(f"pack={pack} must be >= 1 and divide the batch size {batch}")
 
 
 def griffin_lim(
@@ -240,14 +255,15 @@ def griffin_lim(
     (recompute each iteration in the backward pass) as in the JAX package.
     ``loss_psum_axes`` sums the stop loss over those mesh axes, so that
     every rank of ``parallel.batched(..., global_stop=True)`` stops on the
-    global loss (on every backend); ``pack`` folds clips into the TPU
-    kernel's grid, has no counterpart here and must stay unset.
+    global loss (on every backend); ``pack`` is taken on ``'kernel'`` as
+    JAX takes it on ``'pallas4'`` (:func:`check_pack`) and changes nothing.
     """
     if alpha < 0:
         raise ValueError(f"alpha must be >= 0, got {alpha}")
-    check_args(stft_kwargs, loss_psum_axes, pack)
+    check_args(stft_kwargs, loss_psum_axes)
     spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
     backend = resolve_backend(backend, cfg, window, spec_b3.device, spec_b3.is_complex())
+    check_pack(pack, backend, spec_b3.shape[0])
     precision = dft.check_precision(precision, backend)
     x = _full_run(
         spec_b3, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,

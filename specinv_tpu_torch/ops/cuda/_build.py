@@ -63,8 +63,10 @@ _SIGNATURES = {
     ],
     "specinv_rtisi_steps": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P,       # keep upd pre target window awf awr synth tw
-        _P, _P, _P,                               # com xk xs
-        _I, _I, _I, _I, _I, _I, _I, _I,           # B k R nk n log2n hop max_iter
+        _P, _P,                                   # com scratch
+        _I, _I, _I, _I, _I, _I, _I,               # B k R nk n hop max_iter
+        _I, _I, _I, _I, _I, _I, ctypes.c_longlong,  # the plan: cluster fpc group resident
+                                                  # threads smem stride
         _F, _F, _F,                               # lr fscale iscale
         _P,                                       # stream
     ],

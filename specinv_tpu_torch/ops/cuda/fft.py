@@ -29,14 +29,15 @@ def supported_size(n: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(-2*pi*i*k/n), k < n/2, computed in float64, stored as complex64.
+def twiddles(n: int, device: torch.device, dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """exp(-2*pi*i*k/n), k < n/2, computed in float64, stored as ``dtype``
+    (complex128 for the FP64 transform of ``csrc/rfft.cuh``).
 
     Cached per device: a fresh host-to-device copy per launch would make
     every launch wait for the host.
     """
     k = np.arange(n // 2)
-    return torch.from_numpy(np.exp(-2j * np.pi * k / n).astype(np.complex64)).to(device)
+    return torch.from_numpy(np.exp(-2j * np.pi * k / n)).to(dtype).to(device)
 
 
 def scales(n: int, normalized: bool):

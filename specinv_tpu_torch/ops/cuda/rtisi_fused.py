@@ -11,11 +11,16 @@ k + la, F)``; it returns ``(committed (k, B, n_fft), keeped, update, pre)``.
 
 On a CPU tensor it runs :func:`fused_rtisi_steps_reference`; on a CUDA
 tensor it queues one launch on the current stream with no host sync, or
-raises.  Gradients flow through a ``torch.autograd.Function`` whose backward
-replays the plain twin (``models/_kernel_driver.rtisi_steps_twin``) under
-autograd, as the JAX package's ``custom_vjp`` replays ``_multi_twin``.
+raises.  The launch is one thread-block cluster per stream; :func:`plan`
+says how the ``R = la + 1`` in-flight frames spread over its CTAs and where
+their state lives (``csrc/rtisi_fused.cu`` explains the design).  Gradients
+flow through a ``torch.autograd.Function`` whose backward replays the plain
+twin (``models/_kernel_driver.rtisi_steps_twin``) under autograd, as the JAX
+package's ``custom_vjp`` replays ``_multi_twin``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +33,66 @@ UNSUPPORTED = f"onesided spectra, {_fullrun.UNSUPPORTED}"
 
 # Kernel launches (one per call of fused_rtisi_steps on CUDA tensors).
 launches = 0
+
+SHARED_BYTES = 232448  # the most dynamic shared memory a block takes on Hopper (227 KB)
+MAX_CLUSTER = 8        # the portable cluster size
+MAX_THREADS = 512
+
+
+class Plan(NamedTuple):
+    """The launch plan of one stream's cluster."""
+
+    cluster: int         # CTAs per stream
+    frames_per_cta: int  # in-flight frames a CTA owns: CTA c owns frames_per_cta * c onwards
+    group: int           # frames per FFT pass through shared memory
+    resident: bool       # whether the frames' state lives in shared memory
+    threads: int         # threads per CTA
+    smem: int            # dynamic shared-memory bytes per CTA
+    scratch: int         # floats of device memory per stream for the state (0 if resident)
+
+    def owned(self, rank: int, R: int) -> range:
+        """The frame slots CTA ``rank`` owns."""
+        return range(rank * self.frames_per_cta, min(R, (rank + 1) * self.frames_per_cta))
+
+
+def _frame_floats(n: int) -> int:
+    """Floats of state per in-flight frame in device memory: two upd
+    buffers, the committed tail over its samples, the momentum (complex) and
+    the target row."""
+    return 3 * n + 3 * (n // 2 + 1)
+
+
+def _resident_floats(n: int, R: int, fpc: int) -> int:
+    """Floats of a CTA's state in shared memory: a replica of every frame's
+    upd (two buffers) and, for its own frames, the committed tail, the
+    momentum (complex) and the target row."""
+    return 2 * R * n + fpc * (n + 3 * (n // 2 + 1))
+
+
+def plan(n_fft: int, R: int) -> Plan:
+    """Cluster size, frames per CTA, frames per FFT pass, where the state
+    lives, threads and shared memory for ``R`` in-flight frames of
+    ``n_fft`` (the kernel checks the same layout).  Shared memory holds the
+    twiddles (``n_fft/2`` complex FP64), the synthesis window, two FFT
+    buffers of ``n_fft/2`` complex FP64 (and one padding point per eight)
+    per frame of a pass, and, where it all fits, the state: a replica of
+    every frame's upd and the owned frames' other state; else the state
+    lives in device memory."""
+    if R < 1:
+        raise ValueError(f"need R >= 1 frames in flight, got {R}")
+    fpc = -(-R // MAX_CLUSTER)
+    cluster = -(-R // fpc)
+    half = n_fft // 2
+    # FP64 twiddles and the float32 synthesis window; two FP64 complex
+    # buffers, skewed by one point per eight, per frame of a pass
+    fixed, per_frame = 16 * half + 4 * n_fft, 32 * (half + half // 8)
+    state = 4 * _resident_floats(n_fft, R, fpc)
+    resident = fixed + state + per_frame <= SHARED_BYTES
+    group = min(fpc, (SHARED_BYTES - fixed - (state if resident else 0)) // per_frame)
+    threads = min(MAX_THREADS, -(-max(32, group * n_fft // 4) // 32) * 32)
+    scratch = 0 if resident else -(-R * _frame_floats(n_fft) // 2) * 2
+    smem = fixed + group * per_frame + (state if resident else 0)
+    return Plan(cluster, fpc, group, resident, threads, smem, scratch)
 
 
 def supports(cfg: STFTConfig, window) -> bool:
@@ -76,17 +141,17 @@ def _launch(keeped, update, pre, target, windows: RTISIWindows, lr, cfg: STFTCon
     target = target.contiguous()
     windows = [w.contiguous() for w in windows]
     com = torch.empty((k, B, n), dtype=torch.float32, device=dev)
-    length = (R - 1) * hop + n
-    xk = torch.empty((B, length), dtype=torch.float32, device=dev)
-    xs = torch.empty_like(xk)
+    p = plan(n, R)
+    scratch = torch.empty(max(1, B * p.scratch), dtype=torch.float32, device=dev)
     fscale, iscale = scales(n, cfg.normalized)
     fn = _build.library().specinv_rtisi_steps
     launches += 1
     code = fn(
         keep.data_ptr(), upd.data_ptr(), pre.data_ptr(), target.data_ptr(),
-        *(w.data_ptr() for w in windows), twiddles(n, dev).data_ptr(),
-        com.data_ptr(), xk.data_ptr(), xs.data_ptr(),
-        B, k, R, keep.shape[1], n, n.bit_length() - 1, hop, max_iter,
+        *(w.data_ptr() for w in windows), twiddles(n, dev, torch.complex128).data_ptr(),
+        com.data_ptr(), scratch.data_ptr(),
+        B, k, R, keep.shape[1], n, hop, max_iter,
+        p.cluster, p.frames_per_cta, p.group, int(p.resident), p.threads, p.smem, p.scratch,
         float(lr), fscale, iscale, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(code, "specinv_rtisi_steps")

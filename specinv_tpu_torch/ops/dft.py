@@ -132,8 +132,12 @@ def check_precision(precision, backend: str):
     inverse)`` pair of them; None is :func:`fourier.default_precision`.
     Returns the canonical lower-case name or pair.  The ``'kernel'`` and
     ``'fft'`` backends compute in full float32 (or the input's precision):
-    they take None, ``'high'`` and ``'highest'`` and return them unchanged,
-    and raise on anything else, scheme strings and pairs included."""
+    they take None, ``'high'`` and ``'highest'`` (any case) and return them
+    unchanged, and raise on anything else, scheme strings and pairs
+    included.  ``'fft'`` also takes ``'default'``, as JAX's XLA backends do,
+    and ignores it as ``jnp.fft`` does; ``'kernel'`` refuses it, since JAX's
+    ``pallas4`` computes it as one bf16 pass, which the float32 kernel
+    cannot match."""
     if backend == "dft":
         if precision is None:
             return fourier.default_precision()
@@ -146,10 +150,17 @@ def check_precision(precision, backend: str):
         raise ValueError(
             f"precision {precision!r} is not valid for backend 'dft': expected one "
             f"of {SCHEMES} or a (forward, inverse) pair of them")
-    if precision is None or _scheme(precision) in ("high", "highest"):
+    float32_tiers = ("default", "high", "highest") if backend == "fft" else ("high", "highest")
+    if precision is None or _scheme(precision) in float32_tiers:
         return precision
+    if backend == "kernel" and _scheme(precision) == "default":
+        raise ValueError(
+            "precision 'default' is not supported on backend 'kernel': JAX's "
+            "pallas4 computes it as a single bf16 pass, which the float32 kernel "
+            "cannot match (pass None, 'high' or 'highest', or use backend='dft')"
+        )
     raise ValueError(
         f"precision {precision!r} is not supported on backend {backend!r}: it "
-        "computes in full float32 (pass None, 'high' or 'highest'); bf16 "
+        f"computes in full float32 (pass None or one of {float32_tiers}); bf16 "
         "schemes and (forward, inverse) pairs are for backend='dft'"
     )

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import as_numpy_window, canonicalize
+from .ops import dft
 from .ops import stft as stft_ops
 
 
@@ -61,10 +62,14 @@ def window_tensor(window_np: np.ndarray, device, real_dtype: torch.dtype) -> tor
     return w.to(real_dtype)
 
 
-def stft(x, n_fft: int, backend: str = "auto", **stft_kwargs):
+def stft(x, n_fft: int, backend: str = "auto", precision=None, **stft_kwargs):
     """Complex STFT of ``x`` (..., L) -> (..., F, T), torch.stft semantics.
 
-    ``x`` is a tensor on any device, or an array, which goes to the card."""
+    ``x`` is a tensor on any device, or an array, which goes to the card.
+    ``precision`` follows JAX's rule for its XLA backends: None,
+    ``'default'``, ``'high'`` or ``'highest'`` (any case), which
+    ``torch.fft`` ignores; anything else raises."""
+    dft.check_precision(precision, "fft")
     x = as_tensor(x)
     window = stft_kwargs.get("window")
     complex_in = x.is_complex() or (
@@ -96,13 +101,16 @@ def stft(x, n_fft: int, backend: str = "auto", **stft_kwargs):
     return spec_tm.transpose(-1, -2)
 
 
-def istft(spec, length: Optional[int] = None, backend: str = "auto", **stft_kwargs):
+def istft(spec, length: Optional[int] = None, backend: str = "auto", precision=None,
+          **stft_kwargs):
     """Inverse STFT of complex ``spec`` (..., F, T) -> (..., L_out).
 
     ``n_fft`` is inferred from the bin count like the inversion entry points;
     ``length`` crops or zero-pads to an exact sample count.  ``spec`` is a
     tensor on any device, or an array, which goes to the card.
+    ``precision`` as on :func:`stft`.
     """
+    dft.check_precision(precision, "fft")
     spec = as_tensor(spec)
     if not spec.is_complex():
         raise TypeError(

@@ -256,7 +256,9 @@ def test_backend_dispatch(monkeypatch):
     with pytest.raises(ValueError, match="power of two"):
         st.ADMM(odd, max_iter=2, verbose=False, backend="kernel")
     assert st.ADMM(odd, max_iter=2, verbose=False).shape[-1] > 0
-    for bad in (dict(pack=2), dict(loss_psum_axes=("data",)), dict(precision="bf16x2"),
+    with pytest.raises(ValueError, match="pack applies to the whole-run pallas4 kernel only"):
+        st.ADMM(mag, max_iter=2, verbose=False, pack=2)  # CPU 'auto' resolves to 'fft'
+    for bad in (dict(loss_psum_axes=("data",)), dict(precision="bf16x2"),
                 dict(backend="pallas"), dict(backend="pallas4"), dict(tol=-1.0),
                 dict(eva_iter=0)):
         with pytest.raises(ValueError):

@@ -224,6 +224,52 @@ def test_rtisi_chunk_rows_is_bitwise(dev):
     assert torch.equal(stream(chunk_rows=8), stream())
 
 
+# One step of the RTISI kernel against its plain version, 5 refinements, from
+# a state the plain version advanced 4 steps from the zero-phase seed.  Over
+# the shapes below the kernel / plain float32 step lay at most this far from
+# a float64 plain step from the same state (relative to the max; largest sum
+# of the two sides; scripts/torch_rtisi_phases.py section 3 on one NVIDIA
+# H100 80GB HBM3, 700 W): committed frames 4.7e-7 / 1.4e-6, in flight 2.0e-6
+# / 2.9e-6, momentum 7.3e-6 / 5.5e-6.  Each limit is twice that sum, rounded
+# up to one digit.
+RTISI_STEP_LIMITS = {"committed": 4e-6, "keeped": 4e-6, "update": 1e-5, "pre": 3e-5}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("look_ahead", [0, 3, -1])
+@pytest.mark.parametrize("n_fft", [16, 256, 4096])
+def test_rtisi_step_matches_plain_version(dev, n_fft, look_ahead, batch):
+    """hop n_fft / 16, so look_ahead -1 keeps R = 16 frames in flight: more
+    frames than a cluster's 8 CTAs (two per CTA), in device memory at
+    n_fft 4096 (the plan's streamed state); look-ahead 0 is a cluster of one."""
+    hop = n_fft // 16
+    win = np.hanning(n_fft + 1)[:-1].astype(np.float32)
+    cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=win, hop_length=hop)
+    window = torch.from_numpy(w).to(dev)
+    clips = np.stack([make_speech_like(max(4000, 24 * hop + n_fft), seed=s) for s in range(batch)])
+    mag = stft_ops.stft(torch.from_numpy(clips.astype(np.float32)).to(dev), cfg, window).abs()
+    nk = (n_fft - 1) // hop
+    la = nk if look_ahead < 0 else look_ahead
+    target = torch.nn.functional.pad(mag, (0, 0, la, la)).contiguous()
+    state = (torch.zeros(batch, nk, n_fft, device=dev), rtisi_la._seed_update(target, la, cfg),
+             torch.zeros(batch, la + 1, n_fft // 2 + 1, dtype=torch.complex64, device=dev))
+    windows = rtisi_la.rtisi_windows(window, cfg, False)
+    lr, iters = 0.99 / 1.99, 5
+    _, *state = rtisi_fused.fused_rtisi_steps_reference(*state, target[:, : 4 + la], windows, lr,
+                                                        cfg, iters)
+    tgt = target[:, 4 : 5 + la].contiguous()
+    before = rtisi_fused.launches
+    ours = rtisi_fused.fused_rtisi_steps(*state, tgt, windows, lr, cfg, iters)
+    ref = rtisi_fused.fused_rtisi_steps_reference(*state, tgt, windows, lr, cfg, iters)
+    torch.cuda.synchronize()
+    assert rtisi_fused.launches - before == 1
+    for name, a, b in zip(RTISI_STEP_LIMITS, ours, ref):
+        if b.numel():
+            a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+            err = float((a.double() - b.double()).abs().max() / max(float(b.abs().max()), 1e-30))
+            assert err <= RTISI_STEP_LIMITS[name], (name, err)
+
+
 # --- the raw per-iteration dispatch (K4, K6) ---------------------------------
 
 RAW = {

@@ -418,7 +418,9 @@ def test_resolve_backend_and_precision_rules():
     for p in (None, "high", "highest"):
         for backend in ("kernel", "fft"):
             assert dft.check_precision(p, backend) == p
-    for backend, bad in (("kernel", "bf16x2"), ("fft", "default"), ("fft", ("high", "high")),
+    assert dft.check_precision("default", "fft") == "default"  # JAX's XLA rule; no effect
+    for backend, bad in (("kernel", "bf16x2"), ("kernel", "default"), ("fft", "bf16x2"),
+                         ("fft", ("high", "high")),
                          ("dft", "tf32"), ("dft", ("high",)), ("dft", ("high", "x"))):
         with pytest.raises(ValueError):
             dft.check_precision(bad, backend)

@@ -191,11 +191,54 @@ def test_backend_dispatch():
     with pytest.raises(ValueError):
         tgl.resolve_backend("pallas4", cfg, win, torch.device("cuda"))
     mag = torch.rand(129, 20)
-    for bad in (dict(pack=2), dict(loss_psum_axes=("data",)), dict(precision="bf16x2")):
+    # pack on the CPU's resolved 'fft': JAX's message (it is taken on 'kernel')
+    with pytest.raises(ValueError, match="pack applies to the whole-run pallas4 kernel only"):
+        st.griffin_lim(mag, max_iter=2, verbose=False, pack=2)
+    for bad in (dict(loss_psum_axes=("data",)), dict(precision="bf16x2")):
         with pytest.raises(ValueError):
             st.griffin_lim(mag, max_iter=2, verbose=False, **bad)
     with pytest.raises(TypeError):
         st.griffin_lim(mag, max_iter=2, verbose=False, hop_lenght=64)
+
+
+@pytest.mark.parametrize("name", ["griffin_lim", "ADMM"])
+def test_pack_follows_jax_rule(name):
+    """``pack`` as JAX takes it: on a resolved 'kernel' (the JAX 'pallas4')
+    any k >= 1 that divides B is accepted and changes nothing (JAX's packed
+    run is bitwise equal to pack=1); any other k raises JAX's message, and so
+    does every pack on another backend."""
+    fn = getattr(st, name)
+    mag = torch.from_numpy(np.random.default_rng(3).random((2, 129, 12)).astype(np.float32))
+    kw = dict(max_iter=3, tol=0.0, verbose=False)
+    base = fn(mag, backend="kernel", **kw)
+    for k in (1, 2, np.int64(2)):
+        assert torch.equal(fn(mag, backend="kernel", pack=k, **kw), base)
+    cfg, w = st.canonicalize(129, np.float32)
+    assert tgl.resolve_backend("auto", cfg, torch.from_numpy(w), torch.device("cuda")) == "kernel"
+    tgl.check_pack(2, "kernel", 2)  # what 'auto' resolves to on the card
+    for bad in (0, 3, -2, 1.0, True):
+        with pytest.raises(ValueError, match="must be >= 1 and divide the batch size 2"):
+            fn(mag, backend="kernel", pack=bad, **kw)
+        with pytest.raises(ValueError, match="must be >= 1 and divide the batch size 2"):
+            tgl.check_pack(bad, "kernel", 2)
+    for backend in ("fft", "dft", "auto"):  # 'auto' is 'fft' on the CPU
+        with pytest.raises(ValueError, match="pack applies to the whole-run pallas4 kernel only"):
+            fn(mag, backend=backend, pack=2, **kw)
+    with pytest.raises(ValueError, match="pack applies to the whole-run pallas4 kernel only"):
+        getattr(si, name)(mag.numpy(), backend="fft", pack=2, **kw)
+
+
+def test_precision_default_runs_on_fft():
+    """``precision='default'`` on 'fft' runs and equals None, as JAX's XLA
+    backends ignore it; on 'kernel' it raises."""
+    mag = torch.from_numpy(np.random.default_rng(4).random((257, 20)).astype(np.float32))
+    kw = dict(max_iter=3, tol=0.0, verbose=False)
+    base = st.griffin_lim(mag, **kw)
+    for p in ("default", "DEFAULT"):
+        assert torch.equal(st.griffin_lim(mag, precision=p, **kw), base)
+        assert torch.equal(st.ADMM(mag, precision=p, **kw), st.ADMM(mag, **kw))
+    with pytest.raises(ValueError, match="single bf16 pass"):
+        st.griffin_lim(mag, backend="kernel", precision="default", **kw)
 
 
 def test_output_layout_and_dtypes():

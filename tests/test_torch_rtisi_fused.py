@@ -222,3 +222,80 @@ def test_supports_and_checks():
         args[i] = bad
         with pytest.raises(ValueError):
             rtisi_fused._check(*args, windows, cfg)
+
+
+@pytest.mark.parametrize("n_fft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_launch_plan_covers_every_admitted_shape(n_fft):
+    """The kernel's launch plan for every hop (powers of two up to n_fft)
+    and every count R of in-flight frames up to n_fft / hop: each CTA owns
+    one or more frames and each frame exactly one CTA, the cluster stays
+    within the portable 8, shared memory within the 227 KB a block can take
+    and equal to the kernel's layout (FP64 twiddles, the synthesis window,
+    two skewed FP64 FFT buffers per frame of a pass, and the state where it
+    is resident: a replica of every frame's upd and the owned frames' other
+    state), and
+    state that does not fit goes to a device scratch big enough for it."""
+    half = n_fft // 2
+    frame_floats = 3 * n_fft + 3 * (half + 1)  # per frame in device memory
+    hop = 1
+    while hop <= n_fft:
+        for R in range(1, n_fft // hop + 1):
+            p = rtisi_fused.plan(n_fft, R)
+            assert 1 <= p.cluster <= 8 and p.frames_per_cta >= 1
+            owners = np.zeros(R, dtype=int)
+            for rank in range(p.cluster):
+                owned = p.owned(rank, R)
+                assert len(owned) >= 1
+                owners[owned.start : owned.stop] += 1
+            assert (owners == 1).all()
+            assert 1 <= p.group <= p.frames_per_cta
+            assert 32 <= p.threads <= 512 and p.threads % 32 == 0
+            assert half <= 4 * p.threads  # the gather's four sample pairs per thread
+            smem = 16 * half + 4 * n_fft + 32 * p.group * (half + half // 8)
+            # in shared memory: a replica of every frame's upd (two buffers)
+            # and the owned frames' committed tail, momentum and target row
+            resident = 4 * (2 * R * n_fft + p.frames_per_cta * (n_fft + 3 * (half + 1)))
+            if p.resident:
+                smem += resident
+                assert p.scratch == 0
+            else:
+                assert p.scratch >= R * frame_floats and p.scratch % 2 == 0
+                # resident only if the whole state and one FFT pass fit
+                assert smem + resident - 32 * (p.group - 1) * (
+                    half + half // 8) > rtisi_fused.SHARED_BYTES
+            assert p.smem == smem <= rtisi_fused.SHARED_BYTES
+        hop *= 2
+    with pytest.raises(ValueError):
+        rtisi_fused.plan(n_fft, 0)
+
+
+def test_chip_smoke_check_states(tmp_path, monkeypatch):
+    """The RTISI check states chip_smoke.py starts from: the digest it
+    checks, finite values, and the layout (keeped, update, pre) of config 3
+    at batch 1 and 16 and of each small geometry at batch 2; a file with
+    other contents is refused."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    states = cs.rtisi_check_states(torch.device("cpu"))
+    layout = {"cfg3_b1": (1, 2048, 512, None), "cfg3_b16": (16, 2048, 512, None)}
+    layout.update({f"small{i}": (2, n, hop, extra.get("look_ahead"))
+                   for i, (n, hop, extra) in enumerate(cs.RTISI_SMALL)})
+    assert set(states) == set(layout)
+    for name, (batch, n, hop, la) in layout.items():
+        nk = (n - 1) // hop
+        R = (nk if la is None else la) + 1
+        keep, upd, pre = states[name]
+        assert keep.shape == (batch, nk, n) and keep.dtype == torch.float32
+        assert upd.shape == (batch, R, n) and upd.dtype == torch.float32
+        assert pre.shape == (batch, R, n // 2 + 1) and pre.dtype == torch.complex64
+        assert all(bool(torch.isfinite(t).all()) for t in (keep, upd, pre))
+    altered = tmp_path / "states.npz"
+    altered.write_bytes(cs.RTISI_STATES.read_bytes() + b"\0")
+    monkeypatch.setattr(cs, "RTISI_STATES", altered)
+    with pytest.raises(AssertionError, match="unexpected contents"):
+        cs.rtisi_check_states(torch.device("cpu"))

@@ -181,3 +181,29 @@ def test_real_ends_only_moves_what_the_cpu_irfft_ignores(n, dtype):
         torch.fft.irfft(f(s), n=n).square().sum().backward()
         grads.append(s.grad)
     assert torch.equal(*grads)
+
+
+def test_public_transforms_take_jax_precision():
+    """``stft`` / ``istft`` name their parameters as JAX does, in JAX's
+    order; every precision JAX's XLA rule accepts gives the outputs of None
+    (torch.fft ignores it), and every one it rejects raises ValueError in
+    both (``fourier.check_precision``)."""
+    import inspect
+
+    from specinv_tpu.ops import fourier as jfourier
+
+    for ours, ref in ((ttr.stft, jtr.stft), (ttr.istft, jtr.istft)):
+        assert list(inspect.signature(ours).parameters) == list(inspect.signature(ref).parameters)
+    x = torch.from_numpy(make_signal((2, 3000), np.float32, seed=5))
+    spec = ttr.stft(x, 512)
+    y = ttr.istft(spec, length=3000)
+    for p in ("default", "high", "highest", "HIGH", "Default"):
+        assert torch.equal(ttr.stft(x, 512, precision=p), spec)
+        assert torch.equal(ttr.istft(spec, length=3000, precision=p), y)
+    for bad in ("bf16x2", "bf16x2t", "tf32", ("high", "high")):
+        with pytest.raises(ValueError):
+            jfourier.check_precision(bad, "fft")
+        with pytest.raises(ValueError):
+            ttr.stft(x, 512, precision=bad)
+        with pytest.raises(ValueError):
+            ttr.istft(spec, precision=bad)
