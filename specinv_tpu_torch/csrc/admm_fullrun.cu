@@ -34,13 +34,13 @@
 // the footprint of Griffin-Lim's momentum plane (the TPU's DR reduction
 // exists to get it).  At config 2 (n_fft 2048, hop 512, 431 frames) the Y
 // plane is 431 x 1025 x 8 B, about 3.5 MB, and an iteration moves about
-// 16 MB through device memory, all inside the 50 MB L2.  The OLA kernel is
-// bound by that memory traffic and the frame kernel by the shared-memory
-// butterfly stages of the two FFTs and their barriers; the middle adds a
-// few FLOPs per bin and no memory traffic beyond the Y plane it reads and
-// writes.  So the design is Griffin-Lim's: device memory is touched once
-// per plane per iteration, the frame stays in shared memory across both
-// transforms, and the middle runs between them in registers.
+// 16 MB through device memory, all inside the 50 MB L2; the middle adds a
+// few FLOPs per bin.  431 frames fill less than one wave of the 132 SMs, so
+// the frame launch costs about one frame's latency, which the radix-2
+// complex transform it replaced stretched over about 25 barriers per frame.
+// The design is Griffin-Lim's (gl_fullrun.cu): the FP64 half-length real
+// FFT of rfft.cuh in radix-8 register stages and the DR update inside its
+// one pair pass; device memory is touched once per plane per iteration.
 #include <cuda_runtime.h>
 
 #include "fullrun.cuh"
@@ -72,7 +72,7 @@ extern "C" {
 // raw OLA.
 int specinv_admm_iteration(const float* x_in, float* x_out, float2* y,
                            const float* target, const float* window,
-                           const float2* tw, const float* inv_env,
+                           const double2* tw, const float* inv_env,
                            float* frames, float* mag, float* stats, int B,
                            int T, int n, int log2n, int hop, int n_bins,
                            int lp, int onesided, int p_amt, int e,

@@ -1,16 +1,23 @@
 // The iteration engine shared by the whole-run kernels (gl_fullrun.cu,
 // admm_fullrun.cu): one iteration is a frame launch and an OLA launch.
 //
-// * frame_kernel<Middle>: one block per (frame, clip).  It loads the
-//   windowed frame, runs the forward FFT in shared memory (fft.cuh), emits
-//   the eval output on the last iteration of an eval segment (the magnitude
+// * frame_kernel<Middle, ONESIDED>: n/16 threads per frame, one frame per
+//   block, or as many as make a whole warp below n_fft 512
+//   (rfft::frame_launch).  Each frame is transformed as a half-length
+//   complex FFT in FP64 (rfft.cuh): the first radix-8 stage reads the
+//   windowed frame straight from x_pad, packed as z[m] = x[2m] + i
+//   x[2m+1]; after the forward stages one pair pass over
+//   the bin pairs (k, h - k), h = n/2, does everything between the two
+//   transforms in registers: the split post-pass, the forward scale, the
+//   eval output on the last iteration of an eval segment (the magnitude
 //   plane, or per-frame partial sums of (|S|-tgt)^2 and |S|^2 over the
-//   stored bins of the first valid_t frames), hands each stored bin to the
-//   algorithm's Middle (which updates the state plane in place and returns
-//   the spectrum to invert), writes the Hermitian mirror in place, runs the
-//   inverse FFT and writes the windowed frame to a (B, T, n_fft) scratch.
-//   The state is stored onesided in natural bin order as complex64; it stays
-//   Hermitian, so this is exact.
+//   stored bins of the first valid_t frames), the algorithm's Middle on
+//   each stored bin (which updates the state plane in place and returns the
+//   spectrum to invert) and the split pre-pass; the inverse stages' last
+//   one writes the windowed frame to a (B, T, n_fft) scratch.  The state is
+//   stored in natural bin order as complex64, onesided (bins 0 .. h) or
+//   with all n bins; a thread loads the operands of all its pairs (state,
+//   target and split twiddles) at once, one round trip to device memory.
 // * ola_kernel: one thread per output sample.  It gathers its at most
 //   ceil(n_fft/hop) frame terms in ascending frame order (no atomics, so the
 //   result is deterministic), multiplies by inv_env and writes the other
@@ -27,11 +34,33 @@
 // where s is the scaled forward bin, state the bin's state (read, then
 // overwritten), tgt the target magnitude and valid whether the frame lies
 // below valid_t.
+//
+// With all n bins stored (onesided false), Middle runs on bins k and n - k
+// separately, each with its own state, and the inverse takes the Hermitian
+// part (P[k] + conj(P[n-k])) / 2 of its result P: the real part of the full
+// inverse, which is what the frame keeps.  The imaginary parts of the DC
+// and Nyquist bins are dropped going into the inverse (exact: the real part
+// of the inverse drops them).
+//
+// What bounds it on an H100, and what the design does about it.  At config
+// 1 (n_fft 2048, hop 512, 431 frames) the frames fill less than one wave of
+// the 132 SMs, so an iteration costs about one frame's latency: the design
+// halves the transform work (a real frame as a half-length complex one),
+// keeps a butterfly's 8 points in registers and waits at 2 (S - 1) + 2 block
+// barriers per frame (S = ceil(log2(n/2) / 3) stages: 8 at n_fft 2048,
+// against about 25 for 11 radix-2 stages and a permutation each way), reads
+// the frame from device memory in the first stage and writes it from the
+// last.  At the seq shape (25843 frames, many waves) throughput counts: each
+// plane is read and written once (the state plane 212 MB, the target 106
+// MB, x_pad 53 MB, the frame scratch 212 MB: about 0.24 ms at 3.35 TB/s),
+// and what holds the launch above that is residency: at n_fft 2048 the
+// registers and shared memory of an FP64 frame let an SM hold four frames,
+// too few to hide a frame's latency.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "fft.cuh"
+#include "rfft.cuh"
 
 namespace specinv {
 namespace {
@@ -40,86 +69,218 @@ constexpr float kProjEps = 1e-16f;  // griffin_lim.py:38 PROJ_EPS
 
 enum PadMode { kConstant = 0, kReflect = 1, kReplicate = 2, kCircular = 3 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// The sum of v over the warp, or over each aligned group of `lanes` (a
+// power of two <= 32) lanes of it; every lane of the warp calls it.
+__device__ __forceinline__ float warp_sum(float v, int lanes = 32) {
+  for (int o = lanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-template <class Middle>
-__global__ void frame_kernel(
+// The first stage's input: point i of frame f of the block's frames (rows
+// row0 + f of the flattened (B, T)) is (x[2i] w[2i], x[2i+1] w[2i+1]) of
+// that frame's window of x_pad (float32 products, widened to FP64).
+struct FrameIn {
+  const float* x_pad;
+  const float* window;
+  int row0, T, hop, lp;
+  __device__ __forceinline__ double2 operator()(int f, int i) const {
+    const int row = row0 + f;
+    const int b = row / T;
+    const float* src = x_pad + static_cast<size_t>(b) * lp +
+                       static_cast<size_t>(row - b * T) * hop + 2 * i;
+    return make_double2(src[0] * __ldg(window + 2 * i), src[1] * __ldg(window + 2 * i + 1));
+  }
+};
+
+// The inverse's last stage: r[i] of frame f is x[2i] = Re, x[2i+1] = -Im,
+// rounded to float32, times iscale and the window, stored to the frame
+// scratch.
+struct FrameOut {
+  float* out;  // the block's first frame
+  const float* window;
+  float iscale;
+  int n;
+  __device__ __forceinline__ void operator()(int f, int i, double2 v) const {
+    reinterpret_cast<float2*>(out + static_cast<size_t>(f) * n)[i] =
+        make_float2(static_cast<float>(v.x) * iscale * __ldg(window + 2 * i),
+                    -static_cast<float>(v.y) * iscale * __ldg(window + 2 * i + 1));
+  }
+};
+
+// The bins of pair k (0 <= k <= h/2) and whether each is its own: k and
+// h - k, and with all n bins stored n - k and h + k.  At k = 0 the pair is
+// DC and Nyquist (n - 0 and h + 0 repeat them); at k = h/2 it is one bin
+// (and its mirror 3h/2).
+template <bool ONESIDED>
+struct PairBins {
+  static constexpr int count = ONESIDED ? 2 : 4;
+  int bin[count];
+  bool own[count];
+  __device__ __forceinline__ PairBins(int k, int h) {
+    bin[0] = k;
+    own[0] = true;
+    bin[1] = h - k;
+    own[1] = k != h / 2;
+    if constexpr (!ONESIDED) {
+      bin[2] = (2 * h - k) & (2 * h - 1);
+      own[2] = k != 0;
+      bin[3] = h + k;
+      own[3] = k != 0 && k != h / 2;
+    }
+  }
+};
+
+template <class Middle, bool ONESIDED>
+__global__ void __launch_bounds__(256) frame_kernel(
     const float* __restrict__ x_pad,     // (B, lp)
     float2* __restrict__ state,          // (B, T, F) state, updated in place
     const float* __restrict__ target,    // (B, T, F)
     const float* __restrict__ window,    // (n)
-    const float2* __restrict__ tw,       // (n/2) forward twiddles
+    const double2* __restrict__ tw,      // (n/2) forward twiddles
     float* __restrict__ frames,          // (B, T, n) windowed output frames
     float* __restrict__ mag,             // (B, T, F) or null
     float* __restrict__ stats,           // (B, T, 2) or null
-    int T, int n, int log2n, int hop, int n_bins, int lp, int onesided,
-    float fscale, float iscale, int valid_t, Middle middle) {
-  extern __shared__ float2 s[];
+    int rows, int T, int log2n, int hop, int n_bins, int lp, float fscale, float iscale,
+    int valid_t, Middle middle) {
+  using PB = PairBins<ONESIDED>;
+  extern __shared__ double2 smem_points[];
   __shared__ float red[2][32];
-  const int t = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t row = static_cast<size_t>(b) * T + t;
+  const int log2h = log2n - 1, h = 1 << log2h, n = 2 * h;
+  const int tpf = rfft::frame_threads(log2h), hp = rfft::padded(h);
+  const int fpb = rfft::frames_per_block(log2h);
+  double2* tw_s = smem_points;
+  double2* buf = tw_s + h;  // frame f: buf + 2 f hp, two buffers
+  const int row0 = blockIdx.x * fpb;
+  const int nf = min(fpb, rows - row0);  // frames of this block
+  // this thread's frame and its lane in the pair pass
+  const int f = threadIdx.x / tpf, l = threadIdx.x & (tpf - 1);
+  const bool live = f < nf;
+  const int row = row0 + f;
+  const int t = row % T;
+  const size_t plane = static_cast<size_t>(row) * n_bins;
 
-  forward_real(s, x_pad + static_cast<size_t>(b) * lp +
-                      static_cast<size_t>(t) * hop,
-               window, tw, n, log2n);
+  rfft::TwiddleCopy twc;
+  twc.load(tw, h);  // stored after the first stage, which reads no twiddle
 
+  // the forward transform; the spectrum lands in the first buffer when the
+  // stage count is odd, else in the second
+  const int odd = rfft::stages(log2h) & 1;
+  double2* spec = buf + (odd ? 0 : hp);
+  rfft::fft_from(FrameIn{x_pad, window, row0, T, hop, lp}, buf, buf + hp, 2 * hp, tw_s, log2h,
+                 nf, rfft::Store{spec, 2 * hp}, [&]() { twc.store(tw_s, h); });
+  __syncthreads();
+
+  // The pair pass: split post-pass, scale, eval output, Middle, split
+  // pre-pass, in place (the thread of pair k alone reads and writes its
+  // two points).  The state, target and split twiddles of all its pairs are
+  // loaded first (one round trip).
   float l0 = 0.0f, l1 = 0.0f;
   const bool valid = t < valid_t;
   const bool in_sums = stats != nullptr && valid;
-  for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
-    const size_t idx = row * n_bins + k;
-    // Rounded products (__fmul_rn is never fused into an FMA): where the
-    // eval branch below is skipped, the compiler could otherwise fold the
-    // scaling into the middle's first FMA, and an eval iteration would then
-    // round differently from the others.
-    const float2 v = make_float2(__fmul_rn(s[k].x, fscale), __fmul_rn(s[k].y, fscale));
-    if (mag != nullptr || in_sums) {
-      const float m = sqrtf(v.x * v.x + v.y * v.y);
-      if (mag != nullptr) mag[idx] = m;
-      if (in_sums) {
-        const float d = m - target[idx];
-        l0 += d * d;
-        l1 += m * m;
+  if (live) {
+    float2 st[rfft::kPairs][PB::count];
+    float tg[rfft::kPairs][PB::count];
+    double2 wk[rfft::kPairs];
+#pragma unroll
+    for (int i = 0; i < rfft::kPairs; ++i) {
+      const int k = l + i * tpf;
+      if (k <= h / 2) {
+        const PB pb(k, h);
+        wk[i] = __ldg(tw + k);
+#pragma unroll
+        for (int j = 0; j < PB::count; ++j) {
+          if (pb.own[j]) {
+            st[i][j] = state[plane + pb.bin[j]];
+            tg[i][j] = __ldg(target + plane + pb.bin[j]);
+          }
+        }
       }
     }
-    float2 st = state[idx];
-    const float2 p = middle(v, st, target[idx], valid);
-    state[idx] = st;
-    // This thread alone reads bin k in this loop; bin n-k (onesided, 0 < k
-    // < n/2) lies above n_bins and is read by nobody here.
-    s[k] = p;
-    if (onesided && k > 0 && k < n / 2) s[n - k] = make_float2(p.x, -p.y);
+    double2* z = spec + 2 * f * hp;
+#pragma unroll
+    for (int i = 0; i < rfft::kPairs; ++i) {
+      const int k = l + i * tpf;
+      if (k <= h / 2) {
+        const PB pb(k, h);
+        const int kc = k == 0 ? 0 : h - k;
+        double2 zk, zc;
+        rfft::split_forward(z[rfft::at(k)], z[rfft::at(kc)], wk[i], zk, zc);
+        // Bins rounded to float32, then rounded products (__fmul_rn is never
+        // fused into an FMA): where the eval branch below is skipped, the
+        // compiler could otherwise fold the scaling into the middle's first
+        // FMA, and an eval iteration would then round differently from the
+        // others.
+        const float2 xk = make_float2(__fmul_rn(static_cast<float>(zk.x), fscale),
+                                      __fmul_rn(static_cast<float>(zk.y), fscale));
+        const float2 xc = make_float2(__fmul_rn(static_cast<float>(zc.x), fscale),
+                                      __fmul_rn(static_cast<float>(zc.y), fscale));
+        float2 p[PB::count];
+#pragma unroll
+        for (int j = 0; j < PB::count; ++j) {
+          if (!pb.own[j]) continue;
+          const float2 x = j & 1 ? xc : xk;
+          const float2 v = j < 2 ? x : make_float2(x.x, -x.y);  // X[n-k] = conj(X[k])
+          const size_t idx = plane + pb.bin[j];
+          if (mag != nullptr || in_sums) {
+            const float m = sqrtf(v.x * v.x + v.y * v.y);
+            if (mag != nullptr) mag[idx] = m;
+            if (in_sums) {
+              const float d = m - tg[i][j];
+              l0 += d * d;
+              l1 += m * m;
+            }
+          }
+          p[j] = middle(v, st[i][j], tg[i][j], valid);
+          state[idx] = st[i][j];
+        }
+        float2 yk = p[0], yc = pb.own[1] ? p[1] : p[0];
+        if constexpr (!ONESIDED) {  // the Hermitian parts
+          if (k != 0) {
+            yk = make_float2(0.5f * (p[0].x + p[2].x), 0.5f * (p[0].y - p[2].y));
+            yc = pb.own[1] ? make_float2(0.5f * (p[1].x + p[3].x), 0.5f * (p[1].y - p[3].y))
+                           : yk;
+          }
+        }
+        if (k == 0) {  // the inverse of a real frame reads only their real parts
+          yk.y = 0.0f;
+          yc.y = 0.0f;
+        }
+        rfft::split_inverse(make_double2(yk.x, yk.y), make_double2(yc.x, yc.y), wk[i], zk, zc);
+        z[rfft::at(k)] = zk;
+        if (k != 0 && k != h / 2) z[rfft::at(kc)] = zc;
+      }
+    }
   }
 
+  // per-frame eval sums: the frame's lanes of a warp by shuffles, then (a
+  // frame over several warps) its warps in order
   if (stats != nullptr) {
-    l0 = warp_sum(l0);
-    l1 = warp_sum(l1);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) {
-      red[0][warp] = l0;
-      red[1][warp] = l1;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float a = 0.0f, c = 0.0f;
-      for (int w = 0; w < (blockDim.x + 31) / 32; ++w) {
-        a += red[0][w];
-        c += red[1][w];
+    l0 = warp_sum(l0, min(tpf, 32));
+    l1 = warp_sum(l1, min(tpf, 32));
+    if (tpf <= 32) {
+      if (live && l == 0) {
+        stats[static_cast<size_t>(row) * 2] = l0;
+        stats[static_cast<size_t>(row) * 2 + 1] = l1;
       }
-      stats[row * 2] = a;
-      stats[row * 2 + 1] = c;
+    } else if ((threadIdx.x & 31) == 0) {
+      red[0][threadIdx.x >> 5] = l0;
+      red[1][threadIdx.x >> 5] = l1;
     }
+  }
+  __syncthreads();
+  if (stats != nullptr && tpf > 32 && live && l == 0) {
+    float a = 0.0f, c = 0.0f;
+    for (int w = threadIdx.x >> 5; w < (threadIdx.x + tpf) >> 5; ++w) {
+      a += red[0][w];
+      c += red[1][w];
+    }
+    stats[static_cast<size_t>(row) * 2] = a;
+    stats[static_cast<size_t>(row) * 2 + 1] = c;
   }
 
-  inverse_inplace(s, tw, n, log2n);
-  float* out = frames + row * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[i] = s[i].x * iscale * window[i];
-  }
+  // the inverse transform; its last stage writes the windowed frames
+  rfft::fft_from(rfft::Load{spec, 2 * hp}, spec == buf ? buf + hp : buf, spec, 2 * hp, tw_s,
+                 log2h, nf, FrameOut{frames + static_cast<size_t>(row0) * n, window, iscale, n});
 }
 
 __global__ void ola_kernel(const float* __restrict__ frames,   // (B, T, n)
@@ -164,23 +325,30 @@ __global__ void ola_kernel(const float* __restrict__ frames,   // (B, T, n)
 // mag and stats may be null.  Returns the first launch error (0 if none).
 template <class Middle>
 int run_iteration(const float* x_in, float* x_out, float2* state,
-                  const float* target, const float* window, const float2* tw,
+                  const float* target, const float* window, const double2* tw,
                   const float* inv_env, float* frames, float* mag,
                   float* stats, int B, int T, int n, int log2n, int hop,
                   int n_bins, int lp, int onesided, int p_amt, int e,
                   int pad_mode, float fscale, float iscale, int valid_t,
                   Middle middle, cudaStream_t stream) {
-  const dim3 grid(T, B);
-  frame_kernel<Middle><<<grid, frame_threads(n), n * sizeof(float2), stream>>>(
-      x_in, state, target, window, tw, frames, mag, stats, T, n, log2n, hop,
-      n_bins, lp, onesided, fscale, iscale, valid_t, middle);
-  cudaError_t err = cudaGetLastError();
+  if (n != 1 << log2n || n_bins != (onesided ? n / 2 + 1 : n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = B * T;
+  auto* kernel = onesided ? frame_kernel<Middle, true> : frame_kernel<Middle, false>;
+  rfft::FrameLaunch fl;
+  cudaError_t err = rfft::frame_launch(kernel, log2n - 1, &fl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
+  kernel<<<(rows + fl.fpb - 1) / fl.fpb, fl.threads, fl.smem, stream>>>(
+      x_in, state, target, window, tw, frames, mag, stats, rows, T, log2n, hop, n_bins, lp,
+      fscale, iscale, valid_t, middle);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ola_threads = 256;
   const size_t total = static_cast<size_t>(B) * lp;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  ola_kernel<<<blocks, threads, 0, stream>>>(frames, inv_env, x_out, B, T, n,
-                                             hop, lp, p_amt, e, pad_mode);
+  const unsigned blocks = static_cast<unsigned>((total + ola_threads - 1) / ola_threads);
+  ola_kernel<<<blocks, ola_threads, 0, stream>>>(frames, inv_env, x_out, B, T, n,
+                                                 hop, lp, p_amt, e, pad_mode);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,13 +31,16 @@
 // frames) each onesided complex64 state plane is 431 x 1025 x 8 B, about
 // 3.5 MB, the float32 target 1.8 MB and the frame scratch 3.5 MB, so an
 // iteration moves about 16 MB through device memory (all of it fits in the
-// 50 MB L2), while the two FFTs do about 2 x 11 x 1024 butterflies per frame
-// in shared memory.  With 431 blocks of 256 threads on 132 SMs the frame
-// kernel is bound by the shared-memory butterfly stages and their barriers,
-// and the OLA kernel by memory traffic.  The design touches device memory
-// once per plane per iteration and keeps the frame in shared memory across
-// both transforms; fusing the two launches into a persistent kernel with a
-// grid barrier, CUDA graphs and tensor-core DFT stages are later work.
+// 50 MB L2, about 5 us at 3.35 TB/s) and its two transforms do about 0.9
+// MFLOP per frame; 431 frames fill less than one wave of the 132 SMs, so
+// the frame launch costs about one frame's latency.  The radix-2 complex
+// transform it replaced waited at about 25 barriers per frame, with a
+// twiddle load from device memory in every butterfly.  The engine now runs
+// the half-length real FFT of rfft.cuh in FP64 (radix-8 stages in registers,
+// the twiddle table in shared memory, 8 barriers per frame at n_fft 2048),
+// and the momentum and projection inside its one pair pass, whose state and
+// target loads go out together.  Fusing the two launches into a persistent
+// kernel with a grid barrier and CUDA graphs are later work.
 #include <cuda_runtime.h>
 
 #include "fullrun.cuh"
@@ -68,7 +71,7 @@ extern "C" {
 // over the first valid_t frames.  A null inv_env leaves the raw OLA.
 int specinv_gl_iteration(const float* x_in, float* x_out, float2* pre,
                          const float* target, const float* window,
-                         const float2* tw, const float* inv_env, float* frames,
+                         const double2* tw, const float* inv_env, float* frames,
                          float* mag, float* stats, int B, int T, int n,
                          int log2n, int hop, int n_bins, int lp, int onesided,
                          int p_amt, int e, int pad_mode, float lr, float fscale,

@@ -1,6 +1,19 @@
 // Real FFT at half length for the port's kernels: an n-point real frame
 // transformed as an h = n/2-point complex FFT in Stockham radix-8/4/2 stages
 // held in registers, with the standard split passes around it, in FP64.
+// The RTISI kernel D (rtisi_fused.cu), the whole-run kernels A and C
+// (fullrun.cuh) and the stand-alone transform B (fft.cu) run it.
+//
+// Replaces the TPU four-step transform specinv_tpu/ops/pallas/fft4.py
+// (fwd4_lane :322, inv4_real_lane :367, fwd4 :250, inv4_real :280), which
+// the whole-run TPU kernels inline.  The TPU version factors N = m*128 so
+// its two 128-deep stages ride the 128x128 matrix unit in bf16x3 split dots
+// and keeps the spectrum in a permuted (m, 128) order.  None of that carries
+// over: on the CUDA cores a transform of one frame is bound by the latency
+// of its shared-memory round trips and barriers, so this one halves the work
+// (a real frame as a half-length complex one), keeps each butterfly's points
+// in registers and waits at one barrier per radix-8 stage, in natural bin
+// order.
 //
 // Forward: the frame x (n real points) is packed as z[m] = x[2m] + i x[2m+1]
 // (m < h), Z = FFT_h(z), and the split post-pass gives the onesided
@@ -18,8 +31,10 @@
 // stage.  A thread loads one butterfly's R points, twiddles them, runs the
 // R-point DFT in registers and stores them; the block waits at one barrier
 // per stage (ceil(log2(h) / 3) stages, 4 at h = 1024, against 11 radix-2
-// stages and a permutation in fft.cuh), and the last stage hands its
-// outputs to the caller's epilogue instead of a buffer.
+// stages and a permutation in a complex n-point transform).  The first stage
+// may read its points from anywhere (fft_from: the whole-run kernels read
+// the windowed frame straight from device memory), and the last stage hands
+// its outputs to the caller's epilogue instead of a buffer.
 //
 // Precision: the points, twiddles and arithmetic are FP64 (the caller
 // rounds what goes in and comes out to float32), so the transform adds
@@ -27,9 +42,12 @@
 // RTISI-LA's refinements amplify rounding in the bins where |S| is small:
 // with a float32 transform as accurate as cuFFT's, the RTISI kernel lay as
 // far from a float64 run as the float32 plain version; with this one it
-// lies about ten times closer at config 3 (chip_smoke's readings).  The
-// card's FP64 rate is half its FP32 rate, and these transforms are bound by
-// latency and barriers, not by operations.
+// lies about ten times closer at config 3 (chip_smoke's readings).  ADMM's
+// dual integrates rounding too: a float32 instance of these stages in A and
+// C missed one limit of chip_smoke.py, the sequence-parallel ADMM at world
+// 1 against the unsharded call, which this one meets.  The card's FP64 rate
+// is half its FP32 rate, and these transforms are bound by latency and
+// barriers, not by operations.
 //
 // Layout: a buffer of h points keeps point i at at(i) = i + i / 8 (one
 // padding point after every eight), so that the first stage's stores, eight
@@ -40,8 +58,12 @@
 // host and kept in float64, here read from shared memory: exp(-2 pi i m / h)
 // is tw[2m], or -tw[2m - h] past a half turn; a butterfly reads w = w^1 and
 // forms w^2 .. w^(R-1) by products (FP64: each adds about 1e-16), and the
-// split passes take exp(-2 pi i k / n) = tw[k] directly.  The same code on
-// the same inputs gives the same bits wherever it runs.
+// split passes take exp(-2 pi i k / n) = tw[k] directly.  The frame kernels
+// of A, B and C copy tw into shared memory once per block.  A per-stage
+// table of every power, read without bank conflicts, gave the same bits
+// after the float32 rounding of the outputs and ran slower on an H100: the
+// products cost less than the table's extra shared-memory reads.  The same
+// code on the same inputs gives the same bits wherever it runs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -132,8 +154,17 @@ __device__ __forceinline__ void dft(double2* v) {
 // remain, then one radix-4 or radix-2 stage.
 __host__ __device__ __forceinline__ int stages(int log2h) { return (log2h + 2) / 3; }
 
-// A stage's output: point i of frame f stored (skewed) in a buffer whose
-// frames lie `stride` points apart.
+// A stage's input: point i of frame f of a (skewed) buffer whose frames lie
+// `stride` points apart.
+struct Load {
+  const double2* src;
+  int stride;
+  __device__ __forceinline__ double2 operator()(int f, int i) const {
+    return src[f * stride + at(i)];
+  }
+};
+
+// A stage's output: point i of frame f stored (skewed) in such a buffer.
 struct Store {
   double2* dst;
   int stride;
@@ -159,13 +190,17 @@ __device__ __forceinline__ void powers(double2 w, double2* wr) {
   }
 }
 
+// No work: fft_from's default after_first.
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // One Stockham stage of radix R over `frames` frames of h = 2^log2h points
-// (skewed) in src, the frames `stride` points apart; ns = 2^log2ns is the
-// product of the earlier stages' radices.  Output point i of frame f goes
-// to out(f, i, value).  No barrier.
-template <int R, class Out>
-__device__ __forceinline__ void stage(const double2* src, int stride, const double2* tw,
-                                      int log2h, int log2ns, int frames, const Out& out) {
+// read as in(f, i); ns = 2^log2ns is the product of the earlier stages'
+// radices.  Output point i of frame f goes to out(f, i, value).  No barrier.
+template <int R, class In, class Out>
+__device__ __forceinline__ void stage(const In& in, const double2* tw, int log2h, int log2ns,
+                                      int frames, const Out& out) {
   constexpr int log2r = R == 8 ? 3 : (R == 4 ? 2 : 1);
   const int h = 1 << log2h;
   const int log2nb = log2h - log2r;  // butterflies per frame: h / R
@@ -174,10 +209,9 @@ __device__ __forceinline__ void stage(const double2* src, int stride, const doub
   for (int q = threadIdx.x; q < frames << log2nb; q += blockDim.x) {
     const int f = q >> log2nb;
     const int j = q & ((1 << log2nb) - 1);
-    const double2* in = src + f * stride;
     double2 v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = in[at(j + (r << log2nb))];
+    for (int r = 0; r < R; ++r) v[r] = in(f, j + (r << log2nb));
     const int k = j & (ns - 1);
     if (ns > 1) {
       double2 wr[R];
@@ -192,16 +226,59 @@ __device__ __forceinline__ void stage(const double2* src, int stride, const doub
   }
 }
 
-template <class Out>
-__device__ __forceinline__ void run_stage(int log2r, const double2* src, int stride,
-                                          const double2* tw, int log2h, int log2ns, int frames,
-                                          const Out& out) {
+template <class In, class Out>
+__device__ __forceinline__ void run_stage(int log2r, const In& in, const double2* tw, int log2h,
+                                          int log2ns, int frames, const Out& out) {
   if (log2r == 3) {
-    stage<8>(src, stride, tw, log2h, log2ns, frames, out);
+    stage<8>(in, tw, log2h, log2ns, frames, out);
   } else if (log2r == 2) {
-    stage<4>(src, stride, tw, log2h, log2ns, frames, out);
+    stage<4>(in, tw, log2h, log2ns, frames, out);
   } else {
-    stage<2>(src, stride, tw, log2h, log2ns, frames, out);
+    stage<2>(in, tw, log2h, log2ns, frames, out);
+  }
+}
+
+// Forward h-point complex FFT (unscaled) of `frames` frames, the twiddles
+// from tw (n/2 entries, shared memory): the first stage reads first(f, i);
+// stage s < S = stages(log2h) stores to a when s is odd, else to b (the
+// frames `stride` points apart), and the stage after it reads that buffer;
+// the last stage hands its outputs to last(f, i, value), so a Store keeps
+// them in a when S is odd, else in b (never the buffer the last stage
+// reads).  The first stage reads no twiddle, and after_first() runs right
+// after it, before the barrier that follows it (the whole-run kernels store
+// tw there).  Waits at one barrier after each stage but the last: the caller
+// provides any barrier the first stage's input needs, and the one after the
+// last stage.
+template <class First, class Last, class Hook = NoHook>
+__device__ inline void fft_from(const First& first, double2* a, double2* b, int stride,
+                                const double2* tw, int log2h, int frames, const Last& last,
+                                const Hook& after_first = Hook{}) {
+  int bits = log2h, log2r = bits >= 3 ? 3 : bits;
+  if (log2r == bits) {
+    run_stage(log2r, first, tw, log2h, 0, frames, last);
+    after_first();
+    return;
+  }
+  run_stage(log2r, first, tw, log2h, 0, frames, Store{a, stride});
+  after_first();
+  __syncthreads();
+  double2* src = a;
+  double2* dst = b;
+  int log2ns = log2r;
+  bits -= log2r;
+  for (;;) {
+    log2r = bits >= 3 ? 3 : bits;
+    if (log2r == bits) {
+      run_stage(log2r, Load{src, stride}, tw, log2h, log2ns, frames, last);
+      return;
+    }
+    run_stage(log2r, Load{src, stride}, tw, log2h, log2ns, frames, Store{dst, stride});
+    __syncthreads();
+    double2* t = src;
+    src = dst;
+    dst = t;
+    bits -= log2r;
+    log2ns += log2r;
   }
 }
 
@@ -214,22 +291,7 @@ __device__ __forceinline__ void run_stage(int log2r, const double2* src, int str
 template <class Last>
 __device__ inline void fft(double2* a, double2* b, const double2* tw, int log2h, int frames,
                            int stride, const Last& last) {
-  double2* src = a;
-  double2* dst = b;
-  for (int bits = log2h, log2ns = 0; bits > 0;) {
-    const int log2r = bits >= 3 ? 3 : bits;
-    if (log2r == bits) {
-      run_stage(log2r, src, stride, tw, log2h, log2ns, frames, last);
-      return;
-    }
-    run_stage(log2r, src, stride, tw, log2h, log2ns, frames, Store{dst, stride});
-    __syncthreads();
-    double2* t = src;
-    src = dst;
-    dst = t;
-    bits -= log2r;
-    log2ns += log2r;
-  }
+  fft_from(Load{a, stride}, b, a, stride, tw, log2h, frames, last);
 }
 
 // Split post-pass for 0 <= k <= h/2: from zk = Z[k], zc = Z[(h - k) mod h]
@@ -253,6 +315,69 @@ __device__ __forceinline__ void split_inverse(double2 yk, double2 yc, double2 w,
   const double2 o = mul_conj(make_double2(yk.x - yc.x, yk.y + yc.y), w);  // (yk - yc*) w*
   zk = make_double2(e.x - o.y, -(e.y + o.x));  // conj(e + i o)
   zc = make_double2(e.x + o.y, e.y - o.x);     // conj(e* + i o*)
+}
+
+// --- A launch of frames (A, B, C) -------------------------------------------
+//
+// Each frame of n = 2h points gets h/8 threads, one radix-8 butterfly each
+// per stage; a block holds one frame, or as many as make a whole warp below
+// h = 256 (frames_per_block).  The pair pass gives thread l of a frame the
+// pairs k = l + i h/8, i < kPairs.  Shared memory: the twiddle table (h
+// points), then per frame two buffers of padded(h) points.
+
+constexpr int kPairs = 5;          // ceil((h/2 + 1) / (h/8))
+constexpr int kTwiddleLoads = 8;  // twiddle-table points per thread: at most h / (h/8)
+
+__host__ __device__ __forceinline__ int frame_threads(int log2h) { return 1 << (log2h - 3); }
+
+__host__ __device__ __forceinline__ int frames_per_block(int log2h) {
+  return log2h >= 8 ? 1 : 32 >> (log2h - 3);
+}
+
+// A thread's points of the twiddle table (points threadIdx.x + e
+// blockDim.x), loaded from device memory before the first stage, which
+// reads none, and stored to shared memory after it.
+struct TwiddleCopy {
+  double2 v[kTwiddleLoads];
+  __device__ __forceinline__ void load(const double2* __restrict__ tw, int h) {
+#pragma unroll
+    for (int e = 0; e < kTwiddleLoads; ++e) {
+      const int i = threadIdx.x + e * blockDim.x;
+      if (i < h) v[e] = __ldg(tw + i);
+    }
+  }
+  __device__ __forceinline__ void store(double2* tw_s, int h) const {
+#pragma unroll
+    for (int e = 0; e < kTwiddleLoads; ++e) {
+      const int i = threadIdx.x + e * blockDim.x;
+      if (i < h) tw_s[i] = v[e];
+    }
+  }
+};
+
+// A launch of frames of h = 2^log2h points: frames per block, threads per
+// block and dynamic shared memory in bytes.
+struct FrameLaunch {
+  int fpb;
+  int threads;
+  size_t smem;
+};
+
+// The launch of `kernel` over frames of h = 2^log2h points (8 <= h <=
+// 2048, cudaErrorInvalidValue otherwise); lets the kernel take shared
+// memory above 48 KB.
+template <class Kernel>
+inline cudaError_t frame_launch(Kernel* kernel, int log2h, FrameLaunch* launch) {
+  if (log2h < 3 || log2h > 11) return cudaErrorInvalidValue;
+  const int h = 1 << log2h;
+  launch->fpb = frames_per_block(log2h);
+  launch->threads = launch->fpb * frame_threads(log2h);
+  launch->smem = sizeof(double2) * (h + 2 * static_cast<size_t>(launch->fpb) * padded(h));
+  if (launch->smem > 48 * 1024) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(launch->smem));
+  }
+  return cudaSuccess;
 }
 
 }  // namespace rfft

@@ -124,7 +124,7 @@ def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
     mag = torch.empty((B, T, n_bins), dtype=torch.float32, device=dev) if with_mag else None
     partial = torch.zeros((B, T, 2), dtype=torch.float32, device=dev) if with_loss else None
     fscale, iscale = scales(n, cfg.normalized)
-    tw = twiddles(n, dev)
+    tw = twiddles(n, dev, torch.complex128)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn = getattr(_build.library(), entry)
     for it in range(n_iters):

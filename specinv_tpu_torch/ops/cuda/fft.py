@@ -1,11 +1,14 @@
-"""The device FFT of ``csrc/fft.cuh``, its plain version and its launch count.
+"""Kernel B: the device FFT of ``csrc/rfft.cuh``, its plain version and its
+launch count.
 
-``csrc/fft.cuh`` replaces the TPU four-step transform
-``specinv_tpu/ops/pallas/fft4.py`` (``fwd4_lane``, ``inv4_real_lane``).  The
-Griffin-Lim kernel inlines it; :func:`fft` and :func:`ifft` launch it on its
-own (``csrc/fft.cu``) so that it can be held against :func:`fft_reference`
-and :func:`ifft_reference`.  On a CPU tensor the wrappers run the plain
-version; on a CUDA tensor they launch the kernel or raise.
+The half-length real FFT of ``csrc/rfft.cuh`` (FP64) replaces the TPU
+four-step transform ``specinv_tpu/ops/pallas/fft4.py`` (``fwd4_lane``,
+``inv4_real_lane``).  The whole-run kernels A and C inline it
+(``csrc/fullrun.cuh``); :func:`fft` and :func:`ifft` launch it on its own
+(``csrc/fft.cu``), laid out as A and C lay it out, so that it can be held
+against :func:`fft_reference` and :func:`ifft_reference`.  On a CPU tensor
+the wrappers run the plain version; on a CUDA tensor they launch the kernel
+or raise.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ def supported_size(n: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def twiddles(n: int, device: torch.device, dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """exp(-2*pi*i*k/n), k < n/2, computed in float64, stored as ``dtype``
-    (complex128 for the FP64 transform of ``csrc/rfft.cuh``).
+    (complex128 for the FP64 transform of ``csrc/rfft.cuh``, which every
+    kernel that reads the table runs).
 
     Cached per device: a fresh host-to-device copy per launch would make
     every launch wait for the host.
@@ -84,7 +88,7 @@ def fft(frames: torch.Tensor, normalized: bool = False, onesided: bool = True) -
     lib = _build.library()
     launches += 1
     code = lib.specinv_fft_r2c(
-        frames.data_ptr(), out.data_ptr(), twiddles(n, frames.device).data_ptr(),
+        frames.data_ptr(), out.data_ptr(), twiddles(n, frames.device, torch.complex128).data_ptr(),
         rows, n, n.bit_length() - 1, n_bins, scales(n, normalized)[0],
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
@@ -105,7 +109,7 @@ def ifft(spec: torch.Tensor, n: int, normalized: bool = False, onesided: bool = 
     lib = _build.library()
     launches += 1
     code = lib.specinv_fft_c2r(
-        spec.data_ptr(), out.data_ptr(), twiddles(n, spec.device).data_ptr(),
+        spec.data_ptr(), out.data_ptr(), twiddles(n, spec.device, torch.complex128).data_ptr(),
         rows, n, n.bit_length() - 1, n_bins, int(onesided), scales(n, normalized)[1],
         torch.cuda.current_stream(spec.device).cuda_stream,
     )

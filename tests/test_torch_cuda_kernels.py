@@ -21,7 +21,9 @@ from specinv_tpu_torch.config import canonicalize
 from specinv_tpu_torch.models import _kernel_driver as kd
 from specinv_tpu_torch.models.phase_init import phase_init_tm
 from specinv_tpu_torch.ops import stft as stft_ops
-from specinv_tpu_torch.ops.cuda import admm_fullrun, admm_fused, gl_fullrun, gl_fused, rtisi_fused
+from specinv_tpu_torch.ops.cuda import (
+    admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
+)
 from specinv_tpu_torch.ops.framing import pad_center
 from specinv_tpu_torch.utils.corpus import make_speech_like
 
@@ -44,12 +46,13 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _state(dev, n_fft=512, hop=128, batch=2):
+def _state(dev, n_fft=512, hop=128, batch=2, n_samples=7800, **stft_kwargs):
     """A speech-like starting state of ``batch`` clips (SPSI seed, x0 =
     istft(seed))."""
     win_np = torch.hann_window(n_fft).numpy()
-    cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=win_np, hop_length=hop)
-    clips = np.stack([make_speech_like(7800, seed=s) for s in range(batch)]).astype(np.float32)
+    bins = n_fft if stft_kwargs.get("onesided") is False else n_fft // 2 + 1
+    cfg, w = canonicalize(bins, np.float32, window=win_np, hop_length=hop, **stft_kwargs)
+    clips = np.stack([make_speech_like(n_samples, seed=s) for s in range(batch)]).astype(np.float32)
     win = torch.from_numpy(w).to(dev)
     mag = stft_ops.stft(torch.from_numpy(clips).to(dev), cfg, win).abs().contiguous()
     seed = phase_init_tm(mag, cfg).to(torch.complex64)
@@ -86,6 +89,63 @@ def test_kernel_matches_plain_version(dev, name):
     torch.cuda.synchronize()
     assert mod.launches - before == 5
     assert float((x - ref).abs().max() / ref.abs().max()) <= x_limit
+
+
+# Every size the whole-run kernels and the stand-alone FFT take, each way of
+# storing and scaling the spectrum, at chip_smoke.py's limits: the FFT at
+# FFT_LIMIT relative to the max; one iteration of kernel A (C) at X_LIMIT,
+# PLANE_LIMIT, SUM_LIMIT (ADMM_X_LIMIT, ADMM_PLANE_LIMIT, ADMM_SUM_LIMIT).
+SIZES = [1 << k for k in range(4, 13)]
+FFT_LIMIT = 1e-5
+ITERATION_LIMITS = {"gl": (5e-5, 1e-4, 1e-4), "admm": (2e-3, 5e-3, 2e-5)}
+
+
+def _rel(a, b):
+    a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("onesided", [True, False])
+@pytest.mark.parametrize("n", SIZES)
+def test_fft_matches_plain_version_at_every_size(dev, n, onesided, normalized):
+    rng = np.random.default_rng(n)
+    frames = torch.from_numpy(rng.standard_normal((37, n)).astype(np.float32)).to(dev)
+    before = fft.launches
+    spec = fft.fft(frames, normalized, onesided)
+    ref = fft.fft_reference(frames, normalized, onesided)
+    bins = ref.shape[-1]
+    noise = rng.standard_normal((37, bins, 2)).astype(np.float32)
+    rand = torch.view_as_complex(torch.from_numpy(noise)).to(dev)
+    back = fft.ifft(rand, n, normalized, onesided)
+    back_ref = fft.ifft_reference(rand, n, normalized, onesided)
+    torch.cuda.synchronize()
+    assert fft.launches - before == 2
+    assert _rel(spec, ref) <= FFT_LIMIT
+    assert _rel(back, back_ref) <= FFT_LIMIT
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("onesided", [True, False])
+@pytest.mark.parametrize("n", SIZES)
+def test_iteration_matches_plain_version_at_every_size(dev, n, onesided, normalized):
+    """One iteration of kernel A and one of C, hop n / 4, 2 clips, eval
+    sums over all but the last 2 frames."""
+    cfg, state = _state(dev, n, n // 4, n_samples=max(7800, 8 * n), onesided=onesided,
+                        normalized=normalized)
+    valid = state[2].shape[-2] - 2
+    for name, (mod, run, scalar, _) in KERNELS.items():
+        flags = dict(emit_state=True, with_mag=True, with_loss=True, valid_t=valid)
+        before = mod.launches
+        ours = getattr(mod, run)(*state, scalar, cfg, 1, **flags)
+        ref = getattr(mod, f"{run}_reference")(*state, scalar, cfg, 1, **flags)
+        torch.cuda.synchronize()
+        assert mod.launches - before == 1
+        x_lim, plane_lim, sum_lim = ITERATION_LIMITS[name]
+        assert _rel(ours[0], ref[0]) <= x_lim, name
+        assert _rel(ours[1], ref[1]) <= plane_lim, name
+        assert _rel(ours[2], ref[2]) <= plane_lim, name
+        assert float(((ours[3] - ref[3]).abs() / ref[3].abs()).max()) <= sum_lim, name
 
 
 # The direct-DFT kernels: (module, wrapper, scalar, extra arguments, limits
@@ -361,11 +421,15 @@ def golden_digests(dev):
             .hexdigest() for name, ts in outs.items()}
 
 
-# The digests of the tree before the raw-overlap-add branch was added to
-# ola_kernel (csrc/fullrun.cuh), read on an NVIDIA H100 80GB HBM3.
+# The digests read on an NVIDIA H100 80GB HBM3: E and F's (gl_fused,
+# admm_fused) from the tree before the raw-overlap-add branch was added to
+# ola_kernel (csrc/fullrun.cuh); A and C's (gl_fullrun, admm_fullrun) from
+# their frame launch on the half-length real FFT of csrc/rfft.cuh in FP64,
+# which changed their bits on purpose (the complex radix-2 FFT before it read
+# 3a734c0f... and 16392df5...).
 GOLDEN = {
-    "gl_fullrun": "3a734c0fbd57789decdf8dd73744df8f3c2150aea03a6f8d656d3feb348cde50",
-    "admm_fullrun": "16392df541611ae71342161cc8ae00a1be179221cfdc8660f8b77d7c65454f6b",
+    "gl_fullrun": "8232942746451fe98d88798726c8f83bbd079d18bab2b4a057d7da7ea7798189",
+    "admm_fullrun": "14cc753a97fad70ca338832c87362ee0116a29ced28cc995de5d61bca7b25b57",
     "gl_fused": "8866415c642ee9a29cb991141473895a3d661c7b1aa3220736d52344ca6ffb99",
     "admm_fused": "d07eebe77ab38a2fda278fc5fb2c0326b3058d0702a6803aeaa049f1d782e643",
 }
@@ -373,3 +437,45 @@ GOLDEN = {
 
 def test_existing_launches_unchanged_by_the_raw_branch(dev):
     assert golden_digests(dev) == GOLDEN
+
+
+def rtisi_digests(dev):
+    """sha256 of every output of one launch of kernel D of one step and one
+    of 8 steps at BASELINE config 3's widths (n_fft 2048, hop 512, hann,
+    look-ahead 3, 25 refinements), B = 1, from one state made on the CPU
+    with numpy (seed 2025): the frames keep and upd, the momentum pre and the
+    target rows."""
+    import hashlib
+
+    rng = np.random.default_rng(2025)
+    n_fft, hop, la, steps = 2048, 512, 3, 8
+    cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=np.hanning(n_fft + 1)[:-1],
+                          hop_length=hop)
+    nk, R, F = (n_fft - 1) // hop, la + 1, n_fft // 2 + 1
+    keep = 0.05 * rng.standard_normal((1, nk, n_fft))
+    upd = 0.05 * rng.standard_normal((1, R, n_fft))
+    pre = rng.standard_normal((1, R, F)) + 1j * rng.standard_normal((1, R, F))
+    target = np.abs(rng.standard_normal((1, steps + la, F)))
+    state = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (keep, upd)]
+    state.append(torch.from_numpy(pre.astype(np.complex64)).to(dev))
+    target = torch.from_numpy(target.astype(np.float32)).to(dev)
+    windows = rtisi_la.rtisi_windows(torch.from_numpy(w.astype(np.float32)).to(dev), cfg, False)
+    outs = {f"steps{k}": rtisi_fused.fused_rtisi_steps(*state, target[:, : k + la].contiguous(),
+                                                       windows, 0.99 / 1.99, cfg, 25)
+            for k in (1, steps)}
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes() for t in ts))
+            .hexdigest() for name, ts in outs.items()}
+
+
+# Kernel D's digests on the tree before kernels A, B and C came to share its
+# transform (csrc/rfft.cuh), read on an NVIDIA H100 80GB HBM3: D must keep
+# its bits.
+RTISI_GOLDEN = {
+    "steps1": "d9e05c65518e03d6a02af68098c9dd0a6dcc63a684ba56a7be78604c07e800c1",
+    "steps8": "8a787cb7a4473f52aa3113a1b28016acee213fd86a01db6f8dcbdc27da7a06cb",
+}
+
+
+def test_rtisi_launches_keep_their_bits(dev):
+    assert rtisi_digests(dev) == RTISI_GOLDEN

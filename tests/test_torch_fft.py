@@ -1,4 +1,4 @@
-"""Plain version of the device FFT (csrc/fft.cuh) against the JAX package's
+"""Plain version of the device FFT (csrc/fft.cu, csrc/rfft.cuh) against the JAX package's
 four-step transform fft4.fwd4 / inv4_real at precision=HIGHEST.
 
 float32 on both sides: atol 1e-5 relative to the largest output (f32
@@ -70,3 +70,30 @@ def test_twiddles_and_sizes():
     assert fft.supported_size(16) and fft.supported_size(4096)
     assert not fft.supported_size(8) and not fft.supported_size(8192)
     assert not fft.supported_size(400)
+
+
+# Every size the device transform takes, each way of storing and scaling the
+# spectrum: on a CPU tensor the wrappers run the plain version, which must be
+# numpy's transform (the card's kernels are held to it at these sizes).
+@pytest.mark.parametrize("onesided", [True, False])
+@pytest.mark.parametrize("n", [1 << k for k in range(4, 13)])
+def test_cpu_wrappers_are_numpy_transforms_at_every_size(n, onesided):
+    x = np.random.default_rng(n).standard_normal((5, n))
+    for normalized in (False, True):
+        spec = fft.fft(torch.from_numpy(x.astype(np.float32)), normalized, onesided)
+        ref = (np.fft.rfft if onesided else np.fft.fft)(x, norm="ortho" if normalized else None)
+        assert spec.shape == ref.shape
+        np.testing.assert_allclose(spec.numpy(), ref, rtol=0, atol=REL * np.abs(ref).max())
+        back = fft.ifft(spec, n, normalized, onesided)
+        np.testing.assert_allclose(back.numpy(), x, rtol=0, atol=REL * np.abs(x).max())
+
+
+# The twiddle table every kernel of the transform reads: complex128, rounded
+# once from float64.
+@pytest.mark.parametrize("n", [1 << k for k in range(4, 13)])
+def test_twiddle_table_at_every_size(n):
+    tw = fft.twiddles(n, torch.device("cpu"), torch.complex128)
+    assert tw.dtype == torch.complex128 and tw.shape == (n // 2,)
+    np.testing.assert_array_equal(tw.numpy(), np.exp(-2j * np.pi * np.arange(n // 2) / n))
+    assert fft.supported_size(n)
+    assert not fft.supported_size(n + 2) and not fft.supported_size(3 * n // 2)
