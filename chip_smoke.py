@@ -47,8 +47,8 @@ without them.  Phases, each of which raises on failure:
    (``backend='auto'``) and through the direct-DFT kernels
    (``backend='dft'``, precision 'high'), with the float64 ``torch.fft``
    path's SC beside them; then both for 1000 iterations through
-   ``backend='kernel'``, each final SC held against the float64
-   ``torch.fft`` path's; ``griffin_lim(backend='auto')`` at n_fft 400 /
+   ``backend='kernel'`` and ``backend='dft'``, each final SC held against
+   the float64 ``torch.fft`` path's; ``griffin_lim(backend='auto')`` at n_fft 400 /
    hop 160, which must launch ``gl_fused`` and nothing else;
    ``specinv_tpu_torch.RTISI_LA`` (look-ahead 3, 25 refinements: 55
    launches), then ``RTISIStreamer`` over the same frames (434 launches, the
@@ -70,8 +70,10 @@ without them.  Phases, each of which raises on failure:
    100 iterations, and each kernel against its plain version (the
    stand-alone FFT as a CUDA graph of its calls beside the same graph of
    ``torch.fft``, since its device time is below the host's; a direct-DFT
-   iteration beside cuBLAS bf16 products of the same shapes, a yardstick
-   the port never calls); RTISI-LA microseconds per output frame of both
+   iteration at config 1/2 and at 400/160, as a CUDA graph and as called,
+   beside cuBLAS products of the same shapes timed alike, HIGH's six bf16
+   ones and HIGHEST's two float32 ones, a yardstick the port never calls);
+   RTISI-LA microseconds per output frame of both
    paths at batch 1 and 16 (a 10 s against a 5 s clip), microseconds per
    streamer push, and the RTISI kernel per launch of 8 steps at batch 1
    and 16 (against its plain version at batch 1), beside its bound over
@@ -268,17 +270,20 @@ DFT_ADMM_LIMITS = {
 # 1, 0.1182 / 0.0326 dB for ADMM at config 2 and 0.0031 / 0.0031 dB for GL
 # at 400/160.  Each band is twice the sum, rounded up to one digit.
 DFT_SC_BAND_DB, DFT_ADMM_SC_BAND_DB, C7_SC_BAND_DB = 0.1, 0.4, 0.02
-# The 1000-iteration quality of the whole-run kernel paths: the final SC of
-# griffin_lim (config 1) and ADMM (config 2, rho 0.1) through 'kernel'
-# against the port's float64 torch.fft path (its own float64 SPSI seed) after
-# QUALITY_ITERS iterations.  The North star's bar is 1e-3 dB.  On the tree
-# before the half-length transform (scripts/torch_sc_1000.py, NVIDIA H100
-# 80GB HBM3, 700 W) GL lay 0.0143 dB from float64, as far as the float32
-# fft path (0.0144 dB): the float32 path as a whole misses the bar (ROADMAP
-# queue 3), so GL is held as ADMM is, at twice that tree's gap rounded up to
-# one digit (ADMM: 0.4149 dB there).
+# The 1000-iteration quality of the kernel paths: the final SC of
+# griffin_lim (config 1) and ADMM (config 2, rho 0.1) through 'kernel' and
+# through 'dft' (HIGH) against the port's float64 torch.fft path (its own
+# float64 SPSI seed) after QUALITY_ITERS iterations.  The North star's bar is
+# 1e-3 dB.  On the tree before the half-length transform
+# (scripts/torch_sc_1000.py, NVIDIA H100 80GB HBM3, 700 W) GL lay 0.0143 dB
+# from float64, as far as the float32 fft path (0.0144 dB): float32 itself
+# misses the bar (the JAX package's float32 run lies farther from its
+# float64 one than the port's, tests/test_torch_quality.py), so GL is held as
+# ADMM is, at twice that tree's gap rounded up to one digit (ADMM: 0.4149 dB
+# there).  'dft' at twice the gap of the tree before the wgmma engine (same
+# script, same card): GL 0.014541, ADMM 0.354940 dB.
 QUALITY_ITERS = 1000
-QUALITY_BAND_DB = {"griffin_lim": 0.03, "ADMM": 0.9}
+QUALITY_BAND_DB = {"griffin_lim": 0.03, "ADMM": 0.9, "griffin_lim dft": 0.03, "ADMM dft": 0.8}
 # C7 geometry of the 'auto' drive: n_fft 400, hop 160 (no whole-run kernel)
 C7_N_FFT, C7_HOP = 400, 160
 
@@ -1158,12 +1163,15 @@ def smoke(clip_job, batch_jobs) -> None:
               f"{abs(scs[name][0] - sc64[name]):.4f}, dft {abs(scs[name + ' dft'][0] - sc64[name]):.4f}"
               f", float32 fft {abs(scs[name][1] - sc64[name]):.4f} dB", flush=True)
 
-    print(f"[4] {QUALITY_ITERS} iterations of griffin_lim and ADMM through 'kernel' beside the "
-          f"float64 torch.fft path {since()}", flush=True)
-    for name, fn, mod, anchor_fn in (("griffin_lim", st.griffin_lim, gl_fullrun, st.griffin_lim),
-                                     ("ADMM", admm, admm_fullrun, admm_dft)):
+    print(f"[4] {QUALITY_ITERS} iterations of griffin_lim and ADMM through 'kernel' and 'dft' "
+          f"beside the float64 torch.fft path {since()}", flush=True)
+    for name, fn, mod, anchor_fn, backend in (
+            ("griffin_lim", st.griffin_lim, gl_fullrun, st.griffin_lim, "kernel"),
+            ("ADMM", admm, admm_fullrun, admm_dft, "kernel"),
+            ("griffin_lim dft", gl_dft, gl_fused, st.griffin_lim, "dft"),
+            ("ADMM dft", admm_dft, admm_fused, admm_dft, "dft")):
         reset_counts()
-        y = fn(mag, max_iter=QUALITY_ITERS, tol=0.0, backend="kernel", **kw)
+        y = fn(mag, max_iter=QUALITY_ITERS, tol=0.0, backend=backend, **kw)
         torch.cuda.synchronize()
         check_counts(f"{name} {QUALITY_ITERS} it",
                      {f"{mod.__name__.rsplit('.', 1)[-1]}.launches": QUALITY_ITERS})
@@ -1171,7 +1179,7 @@ def smoke(clip_job, batch_jobs) -> None:
             raise AssertionError(f"{name} {QUALITY_ITERS} it: bad output {tuple(y.shape)}")
         sc_k, sc_a = sc_db(y), sc_anchor(anchor_fn, iters=QUALITY_ITERS)
         gap = abs(sc_k - sc_a)
-        print(f"  {name}: SC kernel {sc_k:.6f} dB, float64 fft path {sc_a:.6f} dB, gap "
+        print(f"  {name}: SC {backend} {sc_k:.6f} dB, float64 fft path {sc_a:.6f} dB, gap "
               f"{gap:.6f} dB (band {QUALITY_BAND_DB[name]}; the North star's bar 1e-3)",
               flush=True)
         if not gap <= QUALITY_BAND_DB[name]:
@@ -1406,41 +1414,66 @@ def smoke(clip_job, batch_jobs) -> None:
           f"{fft_plain_ms * 1000:.2f} (CUDA graphs; as called {fft_call_ms * 1000:.2f} vs "
           f"{fft_plain_call_ms * 1000:.2f}) on {smi}", flush=True)
 
-    def dft_ms(mod, run, scalar, extra, tier, plain=False):
+    # E and F at config 1 and E at 400/160: each iteration as a CUDA graph of
+    # 20 calls (the device's time) and as called (the host's pace), beside
+    # the plain version as called
+    c7_cfg, c7_state = kernel_state(C7_N_FFT, C7_HOP, N_SAMPLES, 1, dev)
+
+    def dft_call(mod, run, scalar, extra, tier, plain=False, state=state1, cfg=cfg1):
         fn = getattr(mod, f"{run}_reference" if plain else run)
-        return time_ms(lambda: fn(x_pad, seed, tgt, win, inv_env, scalar, cfg1, *extra,
-                                  precision=tier), 5 if plain else 20)
+        return lambda: fn(*state, scalar, cfg, *extra, precision=tier)
 
-    dft_times = {}
-    for name, mod, run, scalar, extra in (("gl_fused", gl_fused, "fused_gl_iteration", lr, ()),
-                                          ("admm_fused", admm_fused, "fused_admm_iteration",
-                                           ADMM_RHO, (0,))):
-        for tier in ("high", "highest"):
-            dft_times[(name, tier)] = (dft_ms(mod, run, scalar, extra, tier),
-                                       dft_ms(mod, run, scalar, extra, tier, plain=True))
-            print(f"  {name} ({tier}), one iteration at config 1: "
-                  f"{dft_times[(name, tier)][0] * 1000:.2f} us vs plain "
-                  f"{dft_times[(name, tier)][1] * 1000:.2f} us on {smi}", flush=True)
+    dft_times = {}  # (name, tier) -> (graph ms, as-called ms, plain ms)
+    for name, mod, run, scalar, extra, tiers, kw_ in (
+            ("gl_fused", gl_fused, "fused_gl_iteration", lr, (), ("high", "highest"), {}),
+            ("admm_fused", admm_fused, "fused_admm_iteration", ADMM_RHO, (0,),
+             ("high", "highest"), {}),
+            ("gl_fused 400/160", gl_fused, "fused_gl_iteration", lr, (), ("high",),
+             dict(state=c7_state, cfg=c7_cfg))):
+        for tier in tiers:
+            call = dft_call(mod, run, scalar, extra, tier, **kw_)
+            dft_times[(name, tier)] = (graph_ms(call), time_ms(call, 20),
+                                       time_ms(dft_call(mod, run, scalar, extra, tier, True,
+                                                        **kw_), 5))
+            g, c, pl = (v * 1000 for v in dft_times[(name, tier)])
+            print(f"  {name} ({tier}), one iteration: {g:.2f} us (CUDA graph), {c:.2f} us as "
+                  f"called, plain {pl:.2f} us on {smi}", flush=True)
 
-    # Yardstick only (the port never calls it): torch.matmul (cuBLAS) on the
-    # same bf16 halves, HIGH's three passes at the forward shape (T, n) @ (n,
-    # 2F) and the inverse shape (T, 2F) @ (2F, n).
+    # Yardsticks only (the port never calls them): torch.matmul (cuBLAS) of
+    # the same products at the same shapes, timed as E and F are: HIGH's six
+    # bf16 products (three passes of the forward (T, n) @ (n, 2F) and of the
+    # inverse (T, 2F) @ (2F, n)) and HIGHEST's two float32 ones (TF32 off).
     from specinv_tpu_torch.ops import dft as dft_ops
-    from specinv_tpu_torch.ops.cuda import _dft
     from specinv_tpu_torch.ops.framing import frame as frame_of
 
-    _, _, _, cos_hi, cos_lo, sin_hi, sin_lo = _dft.device_tables(N_FFT, False, dev)
-    b_hi, b_lo = torch.cat([cos_hi, sin_hi], 1), torch.cat([cos_lo, sin_lo], 1)
-    a_hi, a_lo = dft_ops.split_bf16((frame_of(x_pad, N_FFT, HOP) * win)[0].contiguous())
-    p_hi, p_lo = dft_ops.split_bf16(torch.view_as_real(seed[0]).transpose(-1, -2)
-                                    .reshape(-1, 2 * seed.shape[-1]).contiguous())
-    bt_hi, bt_lo = b_hi.t().contiguous(), b_lo.t().contiguous()
-    fwd_lib_ms = time_ms(lambda: (a_hi @ b_hi, a_hi @ b_lo, a_lo @ b_hi), 20)
-    inv_lib_ms = time_ms(lambda: (p_hi @ bt_hi, p_hi @ bt_lo, p_lo @ bt_hi), 20)
-    print(f"  yardstick: cuBLAS bf16 torch.matmul, HIGH's 3 passes, forward "
-          f"{tuple(a_hi.shape)} @ {tuple(b_hi.shape)} {fwd_lib_ms * 1000:.2f} us, inverse "
-          f"{tuple(p_hi.shape)} @ {tuple(bt_hi.shape)} {inv_lib_ms * 1000:.2f} us, together "
-          f"{(fwd_lib_ms + inv_lib_ms) * 1000:.2f} us on {smi}", flush=True)
+    def yardsticks(state, cfg):
+        x_pad_, seed_, _, win_, _ = state
+        cos, sin, _ = dft_ops.table_tensors(cfg.n_fft, False, dev, torch.float32)
+        b = torch.cat([cos, sin], 1)
+        bt = b.t().contiguous()
+        a = (frame_of(x_pad_, cfg.n_fft, cfg.hop_length) * win_)[0].contiguous()
+        p = torch.view_as_real(seed_[0]).reshape(-1, 2 * seed_.shape[-1]).contiguous()
+        (a_hi, a_lo), (b_hi, b_lo) = dft_ops.split_bf16(a), dft_ops.split_bf16(b)
+        (p_hi, p_lo), (bt_hi, bt_lo) = dft_ops.split_bf16(p), dft_ops.split_bf16(bt)
+
+        def high():
+            return (a_hi @ b_hi, a_hi @ b_lo, a_lo @ b_hi, p_hi @ bt_hi, p_hi @ bt_lo,
+                    p_lo @ bt_hi)
+
+        def highest():
+            return a @ b, p @ bt
+
+        out = {tier: {"graph_ms": graph_ms(fn), "called_ms": time_ms(fn, 20)}
+               for tier, fn in (("high", high), ("highest", highest))}
+        print(f"  yardstick at {tuple(a.shape)} @ {tuple(b.shape)} and {tuple(p.shape)} @ "
+              f"{tuple(bt.shape)}: cuBLAS HIGH's 6 bf16 products "
+              f"{out['high']['graph_ms'] * 1000:.2f} us (CUDA graph), "
+              f"{out['high']['called_ms'] * 1000:.2f} us as called; HIGHEST's 2 float32 "
+              f"products {out['highest']['graph_ms'] * 1000:.2f} / "
+              f"{out['highest']['called_ms'] * 1000:.2f} us on {smi}", flush=True)
+        return out
+
+    yard = {"config 1": yardsticks(state1, cfg1), "400/160": yardsticks(c7_state, c7_cfg)}
 
     print(f"[5] RTISI-LA per output frame: 10 s against 5 s clip, median of 3 {since()}",
           flush=True)
@@ -1637,16 +1670,23 @@ def smoke(clip_job, batch_jobs) -> None:
                      "specinv_tpu/ops/pallas/rtisi_fused4.py:61",
          "launches": rtisi_launches + stream_launches, "max_abs_err": rtisi_err,
          **timing(rtisi_ms, rtisi_plain_ms, rtisi_bound), "plan": rtisi_plan._asdict()},
-        # one iteration at config 1 in the default tier (HIGH); launches: the
-        # 'dft' main path's (the 400/160 'auto' drive launched it too)
+        # one iteration at config 1 in the default tier (HIGH), ms as a CUDA
+        # graph (called_ms as called); launches: the 'dft' main path's (the
+        # 400/160 'auto' drive launched it too); no one PyTorch call computes
+        # the iteration: yardstick_ms is cuBLAS's HIGH products, timed alike
         {"name": "gl_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/gl_fused.py:193",
          "launches": gl_dft_launches, "max_abs_err": gl_dft_err,
-         **timing(*dft_times[("gl_fused", "high")], dft_bounds["high"])},
+         **timing(dft_times[("gl_fused", "high")][0], dft_times[("gl_fused", "high")][2],
+                  dft_bounds["high"]),
+         "called_ms": dft_times[("gl_fused", "high")][1], "yardstick_ms": yard["config 1"]["high"]},
         {"name": "admm_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/admm_fused.py:41",
          "launches": admm_dft_launches, "max_abs_err": admm_dft_err,
-         **timing(*dft_times[("admm_fused", "high")], dft_bounds["high"])},
+         **timing(dft_times[("admm_fused", "high")][0], dft_times[("admm_fused", "high")][2],
+                  dft_bounds["high"]),
+         "called_ms": dft_times[("admm_fused", "high")][1],
+         "yardstick_ms": yard["config 1"]["high"]},
         # the raw dispatch of kernels A and C: one launch per iteration and
         # shard; launches: counted on the world-1 seq main path (tol 0), ms
         # and bound: one launch at that path's shape, the whole 10-minute

@@ -51,6 +51,11 @@ def busy_us(intervals) -> float:
     return total
 
 
+def short(name: str) -> str:
+    """A kernel's name without its return type and the port's namespace."""
+    return name.replace("void ", "").replace("specinv::(anonymous namespace)::", "")
+
+
 def profile_call(label: str, fn, units: int, unit: str) -> None:
     fn()
     torch.cuda.synchronize()
@@ -65,7 +70,8 @@ def profile_call(label: str, fn, units: int, unit: str) -> None:
         by_name[e.name] += e.time_range.elapsed_us()
     device_us = sum(by_name.values())
     idle = 1.0 - busy_us((e.time_range.start, e.time_range.end) for e in kernels) / wall_us
-    top = ", ".join(f"{name[:40]} {t / units:.2f} us" for name, t in by_name.most_common(3))
+    top = ", ".join(f"{short(name)[:40]} {t / units:.2f} us"
+                    for name, t in by_name.most_common(3))
     print(f"  {label}: {len(kernels) / units:.1f} device kernels / {unit}, device time "
           f"{device_us / units:.2f} us / {unit}; call {wall_us / 1e3:.1f} ms, idle share "
           f"{100 * idle:.1f} %; top: {top}", flush=True)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Read the 1000-iteration quality of the whole-run kernels on one CUDA card:
-the final spectral convergence (SC) of ``griffin_lim`` (BASELINE config 1)
-and ``ADMM`` (config 2, rho 0.1) through ``backend='kernel'`` against the
-port's float64 ``torch.fft`` path from the same magnitude.
+"""Read the 1000-iteration quality of the kernel paths on one CUDA card: the
+final spectral convergence (SC) of ``griffin_lim`` (BASELINE config 1) and
+``ADMM`` (config 2, rho 0.1) through ``backend='kernel'`` (the whole-run
+kernels) and ``backend='dft'`` (the direct-DFT kernels, precision 'high')
+against the port's float64 ``torch.fft`` path from the same magnitude.
 
 Run from the root of a checkout: ``python3 scripts/torch_sc_1000.py [--root
 TREE]``, where ``TREE`` holds the ``specinv_tpu_torch`` package to read
@@ -55,15 +56,18 @@ def main() -> None:
         kw = dict(max_iter=ITERS, tol=0.0, hop_length=HOP, verbose=False)
         sc = {
             "kernel": sc_db(fn(mag, backend="kernel", window=window, **kw), mag, window),
+            "dft": sc_db(fn(mag, backend="dft", precision="high", window=window, **kw), mag,
+                         window),
             "fft": sc_db(fn(mag, backend="fft", window=window, **kw), mag, window),
             "fft float64": sc_db(fn(mag.double(), backend="fft", window=window.double(), **kw),
                                  mag.double(), window.double()),
         }
         gaps = {path: abs(v - sc["fft float64"]) for path, v in sc.items() if path != "fft float64"}
         out[name] = {"sc_db": sc, "gap_db": gaps}
-        print(f"{name}, {ITERS} iterations: SC kernel {sc['kernel']:.6f} dB, fft float32 "
-              f"{sc['fft']:.6f}, fft float64 {sc['fft float64']:.6f}; gap from float64: kernel "
-              f"{gaps['kernel']:.6f} dB, fft float32 {gaps['fft']:.6f} dB", flush=True)
+        print(f"{name}, {ITERS} iterations: SC kernel {sc['kernel']:.6f} dB, dft "
+              f"{sc['dft']:.6f}, fft float32 {sc['fft']:.6f}, fft float64 "
+              f"{sc['fft float64']:.6f}; gap from float64: kernel {gaps['kernel']:.6f} dB, dft "
+              f"{gaps['dft']:.6f} dB, fft float32 {gaps['fft']:.6f} dB", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)

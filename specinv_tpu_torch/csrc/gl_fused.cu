@@ -1,6 +1,7 @@
 // One Griffin-Lim iteration through the direct DFT on the tensor cores, for
-// Hopper (sm_90a): the forward product with the Griffin-Lim middle, the
-// inverse product and the overlap-add (dft_iter.cuh), three launches.  The
+// Hopper (sm_90a): the frame split, the forward product with the
+// Griffin-Lim middle, the inverse product and the overlap-add
+// (dft_iter.cuh), four launches (three for a 'highest' forward).  The
 // wrapper (ops/cuda/gl_fused.py) launches one iteration per call.
 //
 // Replaces the TPU kernel specinv_tpu/ops/pallas/gl_fused.py::_kernel
@@ -19,18 +20,18 @@
 // The TPU kernel keeps the frames and both spectra in VMEM and sweeps the
 // bins as the innermost, sequential grid axis, carrying the inverse partial
 // sums across grid steps.  CUDA blocks cannot carry anything, so the port
-// writes P (B, T, F) and the windowed frames (B, T, n_fft) to device memory
-// between three launches; at the main path both fit in the 50 MB L2.
+// writes the split frames, P and the windowed frames to device memory
+// between the launches; at the main path they fit in the 50 MB L2.
 //
 // What bounds it on an H100: at config 1 (431 frames, n_fft 2048, F 1025)
 // one split pass of both products is 2 x 2 x 2 x 431 x 2048 x 1025 = 7.24
 // GFLOP, so HIGH (three passes) is 21.7 GFLOP, 21.9 us at the 989 TFLOP/s
 // of dense bf16, and HIGHEST 7.24 GFLOP of float32, 108 us at 67 TFLOP/s;
 // the bytes (state, target, mag, P, frames, tables) are about 40 MB, 12 us
-// at 3.35 TB/s.  The split tiers are bound by the tensor cores.  This first
-// design uses WMMA fragments from shared-memory tiles without a copy
-// pipeline (no TMA, no wgmma), so it reaches a fraction of that rate; the
-// tables stream from L2 once per 64-frame row of tiles.
+// at 3.35 TB/s.  The split tiers are bound by the tensor cores.  The engine
+// feeds wgmma from a TMA ring (dft_iter.cuh); what holds it above the bound
+// is L2: at 431 frames a 64 x 128 tile per SM streams its table and data
+// slabs once per product, about 180 MB of L2 reads per product at HIGH.
 #include <cuda_runtime.h>
 
 #include "dft_iter.cuh"
@@ -57,26 +58,28 @@ struct GLDftMiddle {
 
 extern "C" {
 
-// One Griffin-Lim iteration: x_in -> x_out (distinct buffers), pre_in ->
-// pre_out (may be one buffer); spec and frames are scratch, mag may be
-// null.  fwd_scheme and inv_scheme are dft_iter.cuh Scheme codes.
-int specinv_gl_dft_iteration(const float* x_in, float* x_out,
-                             const float2* pre_in, float2* pre_out,
-                             const float* target, const float* window,
-                             const float* wts, const float* cos_f,
-                             const float* sin_f, const __nv_bfloat16* cos_hi,
-                             const __nv_bfloat16* cos_lo,
-                             const __nv_bfloat16* sin_hi,
-                             const __nv_bfloat16* sin_lo, const float* inv_env,
-                             float2* spec, float* frames, float* mag, int B,
-                             int T, int n, int hop, int n_bins, int lp,
-                             int p_amt, int e, int pad_mode, int fwd_scheme,
-                             int inv_scheme, float lr, cudaStream_t stream) {
-  const specinv::Tables tab{cos_f, sin_f, cos_hi, cos_lo, sin_hi, sin_lo};
-  return specinv::run_dft_iteration(
-      x_in, x_out, pre_in, pre_out, target, window, wts, tab, inv_env, spec,
-      frames, mag, B, T, n, hop, n_bins, lp, p_amt, e, pad_mode, fwd_scheme,
-      inv_scheme, T, GLDftMiddle{lr}, stream);
+// One iteration: x_in -> x_out (distinct buffers), pre_in -> pre_out (may
+// be one buffer), mag may be null.  The tables: float32 cos/sin (n, F) for
+// 'highest', fwd (2 F_pad, n_pad) and inv (n_pad, 2 F_pad) bf16 halves for
+// the split schemes (ops/cuda/_dft.py); the scratch: the frames (B, T, n),
+// the split frames (B, T, n_pad) of a split forward, and P for the inverse,
+// spec (B, T, F) for 'highest' or the split planes (B, T, 2 F_pad); a lo
+// half may be null where the schemes read none.  fwd_scheme and inv_scheme
+// are dft_iter.cuh Scheme codes.
+int specinv_gl_dft_iteration(
+    const float* x_in, float* x_out, const float2* pre_in, float2* pre_out,
+    const float* target, const float* window, const float* wts, const float* cos_f,
+    const float* sin_f, const __nv_bfloat16* fwd_hi, const __nv_bfloat16* fwd_lo,
+    const __nv_bfloat16* inv_hi, const __nv_bfloat16* inv_lo, const float* inv_env,
+    float2* spec, float* frames, float* mag, __nv_bfloat16* frame_hi,
+    __nv_bfloat16* frame_lo, __nv_bfloat16* p_hi, __nv_bfloat16* p_lo, int B, int T, int n,
+    int hop, int n_bins, int lp, int p_amt, int e, int pad_mode, int fwd_scheme,
+    int inv_scheme, float lr, cudaStream_t stream) {
+  const specinv::Buffers buf{cos_f, sin_f, fwd_hi, fwd_lo, inv_hi, inv_lo, frame_hi, frame_lo,
+                             {spec, p_hi, p_lo}, frames};
+  return specinv::run_dft_iteration(x_in, x_out, pre_in, pre_out, target, window, wts, buf,
+                                    inv_env, mag, B, T, n, hop, n_bins, lp, p_amt, e, pad_mode,
+                                    fwd_scheme, inv_scheme, T, GLDftMiddle{lr}, stream);
 }
 
 }  // extern "C"

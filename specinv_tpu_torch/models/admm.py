@@ -145,9 +145,10 @@ def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
     with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
 
+    iteration = admm_fused.bind(target, win32, inv_env, rho, cfg, T, precision, with_mag)
+
     def step_fn(state):
-        x, mag, y = admm_fused.fused_admm_iteration(
-            state[0], state[1], target, win32, inv_env, rho, cfg, T, precision, with_mag)
+        x, mag, y = iteration(*state)
         return (x, y), mag
 
     state = iterate(

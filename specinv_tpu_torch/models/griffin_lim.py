@@ -133,9 +133,10 @@ def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
     with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
 
+    iteration = gl_fused.bind(target, win32, inv_env, lr, cfg, precision, with_mag)
+
     def step_fn(state):
-        x, mag, pre = gl_fused.fused_gl_iteration(
-            state[0], state[1], target, win32, inv_env, lr, cfg, precision, with_mag)
+        x, mag, pre = iteration(*state)
         return (x, pre), mag
 
     state = iterate(

@@ -1,17 +1,21 @@
 """What the direct-DFT kernels share: the config check, the device tables,
-the scratch, the launch and the gradient.
+the scratch, the launch (:class:`Launch`, bound once per run) and the
+gradient.
 
-``csrc/dft_iter.cuh`` is one iteration engine (a forward-product launch
-with an algorithm-specific middle, an inverse-product launch and
-``fullrun.cuh``'s OLA launch); ``gl_fused`` and ``admm_fused`` wrap its two
-C entry points.  Both keep the signal ``x_pad (B, lp)`` in padded
-coordinates and the state and target as ``(B, T, F)`` onesided planes in
-natural bin order, and return ``(x_pad, mag, state)`` per iteration.
+``csrc/dft_iter.cuh`` is one iteration engine (for a split scheme a
+frame-split launch, a forward-product launch with an algorithm-specific
+middle, an inverse-product launch, and ``fullrun.cuh``'s OLA launch);
+``gl_fused`` and ``admm_fused`` wrap its two C entry points.  Both keep the
+signal ``x_pad (B, lp)`` in padded coordinates and the state and target as
+``(B, T, F)`` onesided planes in natural bin order, and return ``(x_pad,
+mag, state)`` per iteration.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ...config import STFTConfig
@@ -38,61 +42,123 @@ def supports(cfg: STFTConfig, window) -> bool:
     )
 
 
+def padded_sizes(n_fft: int) -> tuple[int, int]:
+    """``(n_pad, f_pad)``: n_fft rounded up to 64 and F = n_fft // 2 + 1 to
+    32, so that every bf16 row of the split kernels' operands is a whole
+    number of 128-byte lines (the depth of one tensor-core stage)."""
+    return -(-n_fft // 64) * 64, -(-(n_fft // 2 + 1) // 32) * 32
+
+
+def interleaved_tables(n_fft: int, normalized: bool):
+    """``(fwd, inv)`` float32 CPU tensors: the tables of
+    :func:`dft.dft_tables` as the split kernels read them.  ``M2 (n_pad, 2
+    f_pad)`` holds ``cos[k, f]`` at ``[k, 2f]`` and ``-sin[k, f]`` at ``[k, 2f +
+    1]``, zeros in the pad (k >= n_fft, f >= F): the forward's operand is
+    ``fwd = M2^T`` (each output column pair the (re, im) of one bin), the
+    inverse's ``inv = M2`` (rows matching P's (re, im) interleave).  Both are
+    row-major, the contraction innermost."""
+    cos, sin, _ = (torch.from_numpy(np.array(a)) for a in dft.dft_tables(n_fft, normalized))
+    n_pad, f_pad = padded_sizes(n_fft)
+    f = cos.shape[1]
+    m2 = torch.zeros(n_pad, 2 * f_pad, dtype=torch.float32)
+    m2[:n_fft, 0 : 2 * f : 2] = cos
+    m2[:n_fft, 1 : 2 * f : 2] = -sin
+    return m2.t().contiguous(), m2
+
+
+class DeviceTables(NamedTuple):
+    cos: torch.Tensor     # (n, F) float32, 'highest'
+    sin: torch.Tensor
+    w: torch.Tensor       # (F) fold weights * iscale / fscale
+    fwd_hi: torch.Tensor  # (2 f_pad, n_pad) bf16 halves of interleaved_tables' fwd
+    fwd_lo: torch.Tensor
+    inv_hi: torch.Tensor  # (n_pad, 2 f_pad) bf16 halves of its inv
+    inv_lo: torch.Tensor
+
+
 @functools.lru_cache(maxsize=None)
-def device_tables(n_fft: int, normalized: bool, device: torch.device):
-    """``(cos, sin, w, cos_hi, cos_lo, sin_hi, sin_lo)`` on ``device``: the
-    float32 tables of :func:`dft.dft_tables` and the bf16 halves of cos and
-    sin, built once per ``(n_fft, normalized, device)`` (about 33 MB at
-    n_fft 2048)."""
+def device_tables(n_fft: int, normalized: bool, device: torch.device) -> DeviceTables:
+    """The tables on ``device``, built once per ``(n_fft, normalized,
+    device)`` (about 52 MB at n_fft 2048)."""
     cos, sin, w = dft.table_tensors(n_fft, normalized, device, torch.float32)
-    (cos_hi, cos_lo), (sin_hi, sin_lo) = dft.split_bf16(cos), dft.split_bf16(sin)
-    return cos, sin, w, cos_hi, cos_lo, sin_hi, sin_lo
+    fwd, inv = (t.to(device) for t in interleaved_tables(n_fft, normalized))
+    return DeviceTables(cos, sin, w, *dft.split_bf16(fwd), *dft.split_bf16(inv))
 
 
-def launch(entry: str, count, x_pad, state, target, window, inv_env, cfg: STFTConfig,
-           precision, with_mag: bool, scalars):
-    """One iteration of the C entry point ``entry`` on the current stream,
-    calling ``count()`` first; ``scalars`` are its trailing arguments
-    before the stream.  Returns ``(x, mag or None, state)``."""
-    B, T, n_bins = target.shape
-    n, dev = cfg.n_fft, x_pad.device
-    geo = make_geometry(cfg, T)
-    if n_bins != cfg.num_freqs:
-        raise ValueError(f"target has {n_bins} bins, the config {cfg.num_freqs}")
-    for name, t, dtype, shape in (
-        ("x_pad", x_pad, torch.float32, (B, geo.lp)),
-        ("state", state, torch.complex64, (B, T, n_bins)),
-        ("target", target, torch.float32, (B, T, n_bins)),
-        ("window", window, torch.float32, (n,)),
-        ("inv_env", inv_env, torch.float32, (geo.lp,)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    x_pad, state, target, window, inv_env = (
-        t.contiguous() for t in (x_pad, state, target, window, inv_env))
-    fwd, inv = dft.split_schemes(precision)
-    tables = device_tables(n, cfg.normalized, dev)
-    x_out = torch.empty_like(x_pad)
-    state_out = torch.empty_like(state)
-    spec = torch.empty((B, T, n_bins), dtype=torch.complex64, device=dev)
-    frames = torch.empty((B, T, n), dtype=torch.float32, device=dev)
-    mag = torch.empty((B, T, n_bins), dtype=torch.float32, device=dev) if with_mag else None
-    count()
-    code = getattr(_build.library(), entry)(
-        x_pad.data_ptr(), x_out.data_ptr(), state.data_ptr(), state_out.data_ptr(),
-        target.data_ptr(), window.data_ptr(), tables[2].data_ptr(),
-        *(t.data_ptr() for t in (tables[0], tables[1], *tables[3:])),
-        inv_env.data_ptr(), spec.data_ptr(), frames.data_ptr(),
-        mag.data_ptr() if with_mag else None,
-        B, T, n, cfg.hop_length, n_bins, geo.lp, geo.p_amt, geo.e, PAD_CODES[cfg.pad_mode],
-        dft.SCHEMES.index(fwd), dft.SCHEMES.index(inv), *scalars,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(code, entry)
-    return x_out, mag, state_out
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class Launch:
+    """The C entry point ``entry`` bound to what stays fixed over a run:
+    the target, window, envelope, config, precision and scalars (the
+    entry's trailing arguments before the stream) are checked, and the
+    tables, the scratch and the fixed arguments made, once.  Each call
+    launches one iteration on the current stream, calling ``count()``
+    first, and returns ``(x, mag or None, state)``; it does not check
+    ``x_pad`` and ``state`` (:meth:`check` does)."""
+
+    def __init__(self, entry: str, count, target, window, inv_env, cfg: STFTConfig, precision,
+                 with_mag: bool, scalars):
+        B, T, n_bins = target.shape
+        n, self.dev = cfg.n_fft, target.device
+        geo = make_geometry(cfg, T)
+        if n_bins != cfg.num_freqs:
+            raise ValueError(f"target has {n_bins} bins, the config {cfg.num_freqs}")
+        self.expect = {"x_pad": (torch.float32, (B, geo.lp)),
+                       "state": (torch.complex64, (B, T, n_bins)),
+                       "target": (torch.float32, (B, T, n_bins)),
+                       "window": (torch.float32, (n,)),
+                       "inv_env": (torch.float32, (geo.lp,))}
+        self.check(target=target, window=window, inv_env=inv_env)
+        target, window, inv_env = (t.contiguous() for t in (target, window, inv_env))
+        fwd, inv = dft.split_schemes(precision)
+        tab = device_tables(n, cfg.normalized, self.dev)
+        n_pad, f_pad = padded_sizes(n)
+
+        def scratch(shape, dtype, needed=True):
+            return torch.empty(shape, dtype=dtype, device=self.dev) if needed else None
+
+        # Written and read within an iteration: P for a float32 inverse, the
+        # frames, the split frames of a split forward, P's split planes.
+        spec = scratch((B, T, n_bins), torch.complex64, inv == "highest")
+        frames = scratch((B, T, n), torch.float32)
+        planes = (scratch((B, T, n_pad), torch.bfloat16, fwd != "highest"),
+                  scratch((B, T, n_pad), torch.bfloat16, dft.needs_lo(fwd)),
+                  scratch((B, T, 2 * f_pad), torch.bfloat16, inv != "highest"),
+                  scratch((B, T, 2 * f_pad), torch.bfloat16, dft.needs_lo(inv)))
+        self.held = (target, window, inv_env, tab, spec, frames, planes)
+        self.fn, self.count, self.entry = getattr(_build.library(), entry), count, entry
+        self.mag_shape = (B, T, n_bins) if with_mag else None
+        self.head = (target.data_ptr(), window.data_ptr(), tab.w.data_ptr(), tab.cos.data_ptr(),
+                     tab.sin.data_ptr(), tab.fwd_hi.data_ptr(), tab.fwd_lo.data_ptr(),
+                     tab.inv_hi.data_ptr(), tab.inv_lo.data_ptr(), inv_env.data_ptr(),
+                     _ptr(spec), frames.data_ptr())
+        self.tail = (*(_ptr(t) for t in planes), B, T, n, cfg.hop_length, n_bins, geo.lp,
+                     geo.p_amt, geo.e, PAD_CODES[cfg.pad_mode], dft.SCHEMES.index(fwd),
+                     dft.SCHEMES.index(inv), *scalars)
+
+    def check(self, **tensors):
+        """Raise unless each named tensor (x_pad, state, target, window,
+        inv_env) has its type and shape on the target's device."""
+        for name, t in tensors.items():
+            dtype, shape = self.expect[name]
+            if t.device != self.dev or t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(
+                    f"{name}: expected {dtype} {shape} on {self.dev}, got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                )
+
+    def __call__(self, x_pad, state):
+        x_pad, state = x_pad.contiguous(), state.contiguous()
+        x_out, state_out = torch.empty_like(x_pad), torch.empty_like(state)
+        mag = None if self.mag_shape is None else torch.empty(self.mag_shape, device=self.dev)
+        self.count()
+        code = self.fn(x_pad.data_ptr(), x_out.data_ptr(), state.data_ptr(),
+                       state_out.data_ptr(), *self.head, _ptr(mag), *self.tail,
+                       torch.cuda.current_stream(self.dev).cuda_stream)
+        _build.check(code, self.entry)
+        return x_out, mag, state_out
 
 
 class Iteration(torch.autograd.Function):

@@ -183,6 +183,52 @@ def test_dft_kernel_matches_plain_version_at_c7(dev, name, precision):
 
 
 @pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+@pytest.mark.parametrize("precision", ["high", "highest", "bf16x2t"])
+@pytest.mark.parametrize("n_fft,hop", [(400, 100), (500, 125), (1000, 160), (4096, 1024)])
+def test_dft_kernel_matches_plain_version_at_padded_shapes(dev, name, precision, n_fft, hop):
+    """One iteration at B = 3 where no table row is a whole number of
+    128-byte lines (n_fft 400, 500, 1000; F 201, 251, 501) or the hop frames
+    at addresses that are not 16-byte aligned (hop 125), and at the largest
+    n_fft; ADMM with valid_t < T (the last 3 frames' state zeroed)."""
+    mod, run, scalar, extra, limits = DFT_KERNELS[name]
+    cfg, state = _state(dev, n_fft, hop, batch=3, n_samples=max(7800, 4 * n_fft))
+    T = state[2].shape[-2]
+    if name == "admm_fused":
+        extra = (T - 3,)
+    before = mod.launches
+    ours = getattr(mod, run)(*state, scalar, cfg, *extra, precision=precision)
+    ref = getattr(mod, f"{run}_reference")(*state, scalar, cfg, *extra, precision=precision)
+    torch.cuda.synchronize()
+    assert mod.launches - before == 1
+    if name == "admm_fused":
+        assert not ours[2][:, T - 3 :].any()
+    for u, v, limit in zip(ours, ref, limits[precision]):
+        assert _rel(u, v) <= limit
+
+
+@pytest.mark.parametrize("name,precision", [
+    ("gl_fused", "high"), ("gl_fused", ("high", "highest")), ("gl_fused", ("highest", "high")),
+    ("admm_fused", "high"), ("admm_fused", "bf16x2t")])
+def test_dft_bound_iterations_equal_single_calls(dev, name, precision):
+    """The 'dft' loop's bound iteration (bind: checks, tables and scratch
+    made once, the scratch reused) gives each of 3 chained iterations the
+    bits of the public one-call wrapper; with a (forward, inverse) pair P
+    passes through the planes (a split inverse) or the complex spectrum (a
+    float32 one)."""
+    mod, run, scalar, extra, _ = DFT_KERNELS[name]
+    cfg, (x, s, tgt, win, env) = _state(dev, 400, 160)
+    iteration = mod.bind(tgt, win, env, scalar, cfg, *extra, precision=precision)
+    a = b = (x, s)
+    for _ in range(3):
+        xa, ma, sa = iteration(*a)
+        xb, mb, sb = getattr(mod, run)(*b, tgt, win, env, scalar, cfg, *extra,
+                                       precision=precision)
+        a, b = (xa, sa), (xb, sb)
+        torch.cuda.synchronize()
+        assert torch.equal(xa, xb) and torch.equal(ma, mb) and torch.equal(sa, sb)
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
 def test_dft_state_does_not_depend_on_the_mag_output(dev, name):
     """The state and the signal are bitwise equal with the magnitude output
     on and off (the middle's products and sums are rounded one by one)."""
@@ -421,17 +467,19 @@ def golden_digests(dev):
             .hexdigest() for name, ts in outs.items()}
 
 
-# The digests read on an NVIDIA H100 80GB HBM3: E and F's (gl_fused,
-# admm_fused) from the tree before the raw-overlap-add branch was added to
-# ola_kernel (csrc/fullrun.cuh); A and C's (gl_fullrun, admm_fullrun) from
-# their frame launch on the half-length real FFT of csrc/rfft.cuh in FP64,
-# which changed their bits on purpose (the complex radix-2 FFT before it read
-# 3a734c0f... and 16392df5...).
+# The digests read on an NVIDIA H100 80GB HBM3.  A and C's (gl_fullrun,
+# admm_fullrun) from their frame launch on the half-length real FFT of
+# csrc/rfft.cuh in FP64, which changed their bits on purpose (the complex
+# radix-2 FFT before it read 3a734c0f... and 16392df5...).  E and F's
+# (gl_fused, admm_fused) from the engine's split products on wgmma (one
+# product of depth 2F in the inverse, float32 sums per 64-deep stage), which
+# changed their bits on purpose: the WMMA design before it read 8866415c...
+# and d07eebe7....
 GOLDEN = {
     "gl_fullrun": "8232942746451fe98d88798726c8f83bbd079d18bab2b4a057d7da7ea7798189",
     "admm_fullrun": "14cc753a97fad70ca338832c87362ee0116a29ced28cc995de5d61bca7b25b57",
-    "gl_fused": "8866415c642ee9a29cb991141473895a3d661c7b1aa3220736d52344ca6ffb99",
-    "admm_fused": "d07eebe77ab38a2fda278fc5fb2c0326b3058d0702a6803aeaa049f1d782e643",
+    "gl_fused": "4445b93fd109b5854da920c5f4e1ced9961c1aab292990b32bc0b3b171e87187",
+    "admm_fused": "3520d526bf68faedb8615101e7a0c73aea5731d21e094d1f9c53b367042601e2",
 }
 
 

@@ -194,6 +194,34 @@ def test_tables_match_jax():
         np.testing.assert_array_equal(w, jw[0, :f])
 
 
+@pytest.mark.parametrize("n_fft,normalized", [(16, False), (400, False), (500, True),
+                                               (1000, False), (2048, False), (4096, True)])
+def test_interleaved_tables_hold_the_jax_tables_and_zero_padding(n_fft, normalized):
+    """The split kernels' table layout (ops/cuda/_dft.interleaved_tables):
+    the JAX tables' cos at [k, 2f] and -sin at [k, 2f + 1] of M2 (n_pad, 2
+    f_pad), zeros elsewhere, and the forward's operand its transpose; their
+    bf16 halves are the split of the float32 values."""
+    cos, sin, _ = dft.dft_tables(n_fft, normalized)
+    f = n_fft // 2 + 1
+    jcos, jsin, _ = j_gl_fused._dft_tables(n_fft, -(-f // 128) * 128, normalized)
+    fwd, inv = _dft.interleaved_tables(n_fft, normalized)
+    n_pad, f_pad = _dft.padded_sizes(n_fft)
+    assert n_pad % 64 == 0 and n_pad - 64 < n_fft <= n_pad
+    assert f_pad % 32 == 0 and f_pad - 32 < f <= f_pad
+    assert inv.shape == (n_pad, 2 * f_pad) and inv.dtype == torch.float32
+    assert torch.equal(fwd, inv.t())
+    np.testing.assert_array_equal(inv[:n_fft, 0 : 2 * f : 2].numpy(), jcos[:, :f])
+    np.testing.assert_array_equal(inv[:n_fft, 1 : 2 * f : 2].numpy(), -jsin[:, :f])
+    np.testing.assert_array_equal(inv[:n_fft, 1 : 2 * f : 2].numpy(), -sin)
+    np.testing.assert_array_equal(inv[:n_fft, 0 : 2 * f : 2].numpy(), cos)
+    assert not inv[n_fft:].any() and not inv[:, 2 * f :].any()
+    hi, lo = dft.split_bf16(inv[:n_fft, : 2 * f])
+    chi, clo = dft.split_bf16(torch.from_numpy(np.array(cos)))
+    shi, slo = dft.split_bf16(torch.from_numpy(np.array(sin)))
+    assert torch.equal(hi[:, 0::2], chi) and torch.equal(lo[:, 0::2], clo)
+    assert torch.equal(hi[:, 1::2], -shi) and torch.equal(lo[:, 1::2], -slo)
+
+
 def test_split_and_schemes_match_jax():
     """The bf16 split and the product schemes against JAX's own, bitwise on
     the halves, to float32 rounding on the products."""
