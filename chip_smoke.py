@@ -2,9 +2,11 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: Griffin-Lim
 (config 1) and ADMM (config 2) through the whole-run kernels and through the
 direct-DFT kernels, Griffin-Lim at n_fft 400 / hop 160 through 'auto',
-RTISI-LA offline and streaming (config 3), and the parallel layer: the
-sequence-parallel Griffin-Lim and ADMM on a 10-minute clip at world size 1
-and 2, and batched Griffin-Lim over 256 clips at world size 2.
+RTISI-LA offline and streaming (config 3), L-BFGS on a 128-band log-mel
+spectrogram (config 4), mel_to_audio, the WAV codec, the command line and
+the throughput timer, and the parallel layer: the sequence-parallel
+Griffin-Lim and ADMM on a 10-minute clip at world size 1 and 2, and batched
+Griffin-Lim over 256 clips at world size 2.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card, ``nvcc`` and no network, and fails (nonzero exit, no result line)
@@ -52,7 +54,21 @@ without them.  Phases, each of which raises on failure:
    hop 160, which must launch ``gl_fused`` and nothing else;
    ``specinv_tpu_torch.RTISI_LA`` (look-ahead 3, 25 refinements: 55
    launches), then ``RTISIStreamer`` over the same frames (434 launches, the
-   offline path's committed frames bit for bit); then on a 10-minute clip
+   offline path's committed frames bit for bit); BASELINE config 4:
+   ``specinv_tpu_torch.L_BFGS`` on the clip's 128-band log-mel spectrogram,
+   10 outer steps of 20 strong-Wolfe iterations, history 100, float32, again
+   with the history in bf16 and with the fixed step, each launching no
+   kernel of the port (``torch.fft`` with autograd) and held by its final
+   relative log-mel loss against float64 runs of the same path from 5 seeded
+   starts, with its ms per outer step, closure evaluations per inner
+   iteration, peak memory and idle share (``torch.profiler``);
+   ``mel_to_audio`` (128 mels, NNLS 200 iterations, 100 Griffin-Lim
+   iterations through ``'auto'``), which must launch kernel A exactly as
+   ``griffin_lim`` does, its SC held against a float64 call, its NNLS time
+   beside its Griffin-Lim time; the native WAV codec (a round trip of the
+   clip), ``python -m specinv_tpu_torch l_bfgs --max-iter 20 --output ...``
+   in a subprocess on the card, and ``utils.profiling.Throughput`` against
+   CUDA events around the same call; then on a 10-minute clip
    (utils/corpus seed 0, 25840 frames, made with the 256 clips below in
    worker processes during phases 2-3) ``parallel.griffin_lim_seq`` and
    ``admm_seq`` (``'auto'``: one raw launch per iteration, exactly 100, and
@@ -92,6 +108,8 @@ from __future__ import annotations
 import importlib
 import json
 import multiprocessing as mp
+import os
+import re
 import subprocess
 import sys
 import time
@@ -348,6 +366,38 @@ COUNTERS = (("gl_fullrun", "launches"), ("gl_fullrun", "iteration_launches"),
             ("admm_fullrun", "launches"), ("admm_fullrun", "iteration_launches"),
             ("fft", "launches"), ("rtisi_fused", "launches"), ("gl_fused", "launches"),
             ("admm_fused", "launches"))
+
+
+# BASELINE config 4 (BASELINE.json configs[3], the settings of
+# bench.py:546-551): L_BFGS on the 128-band log-mel spectrogram of the 10 s
+# clip (n_fft 2048, hop 512, hann), 10 outer steps of 20 strong-Wolfe
+# iterations, history 100, float32; the same with the history in bf16, and
+# with the fixed step.  L-BFGS on a non-convex loss is chaotic across types,
+# so each float32 run is held by its final relative log-mel loss (mean
+# squared error over the target's mean square, under the float64
+# transform) against the float64 run of the same path from the same start,
+# in decades: within twice the spread of the float64 runs' losses over the
+# starts of LBFGS_SEEDS, rounded up to one digit.  On an NVIDIA H100 80GB
+# HBM3, 700 W, the float64 strong-Wolfe runs ended at 6.265e-2 to 6.430e-2
+# (0.0113 decades; the float32 runs lay 0.0000 and 0.0019 decades, bf16
+# history, from seed 0's), the fixed-step runs at 0.94 to 17.3 (1.2666
+# decades: the fixed step lr = 1 climbs on this loss, in the JAX package
+# too; the float32 run lay 0.56 decades from seed 0's).
+SR, N_MELS = 22050, 128
+LBFGS_OUTER, LBFGS_INNER, LBFGS_HISTORY = 10, 20, 100
+LBFGS_SEEDS = range(5)
+LBFGS_BAND_DECADES = {"strong_wolfe": 0.03, "fixed": 3.0}
+LBFGS_CEILING = 0.1  # the relative loss the strong-Wolfe runs must end below
+# mel_to_audio at config 1's geometry: the clip's 128-band power mel, NNLS
+# (200 iterations), then griffin_lim (100 iterations, 'auto': kernel A).
+# Its final SC against the float64 NNLS magnitude is held against the same
+# call in float64 ('fft' path): the first reading on the same card was
+# 0.0146 dB apart (-16.0753 against -16.0607 dB); twice that, rounded up.
+MEL_NNLS_ITERS = 200
+MEL_SC_BAND_DB = 0.03
+# Throughput's reading of a config-1 griffin_lim call against this script's
+# own CUDA events around the same call (event_ms): relative.
+THROUGHPUT_AGREE = 0.10
 
 
 def _kernel_module(name: str):
@@ -862,6 +912,212 @@ def seq_rank(rank, world, store, clip_path, batch_paths):
         dist.destroy_process_group()
 
 
+def busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def idle_share(fn) -> float:
+    """The device's idle share of one ``fn()`` under ``torch.profiler``: 1
+    - the union of its kernels' intervals over the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - start) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler saw no device kernel")
+    return 1.0 - busy_us((e.time_range.start, e.time_range.end) for e in kernels) / wall_us
+
+
+def config4_phase(clip, window, smi) -> None:
+    """BASELINE config 4 through L_BFGS at full width (see LBFGS_*): three
+    float32 runs from the start of seed 0 beside float64 runs from every
+    seed of LBFGS_SEEDS, no kernel of the port launched, each final loss in
+    its band; then ms per outer step, closure evaluations per inner
+    iteration, the peak memory of the call and its history, and the idle
+    share under torch.profiler."""
+    import specinv_tpu_torch as st
+    from specinv_tpu_torch.models import lbfgs
+
+    fn = st.log_mel_transform(n_fft=N_FFT, n_mels=N_MELS, sample_rate=SR, hop_length=HOP,
+                              window=window)
+    mel32, mel64 = fn(clip), fn(clip.double())
+    if mel32.shape != (N_MELS, N_SAMPLES // HOP + 1) or mel32.dtype != torch.float32:
+        raise AssertionError(f"log-mel target {tuple(mel32.shape)} {mel32.dtype}")
+
+    def rel_loss(y):  # under the float64 transform
+        with torch.no_grad():
+            d = fn(y.double()) - mel64
+            return float((d * d).mean() / (mel64 * mel64).mean())
+
+    def start(seed):
+        gen = torch.Generator(device=clip.device).manual_seed(seed)
+        return torch.randn(N_SAMPLES, generator=gen, dtype=torch.float64,
+                           device=clip.device) * 1e-6
+
+    runs = {"compact": dict(line_search_fn="strong_wolfe"),
+            "bf16 history": dict(line_search_fn="strong_wolfe", history_dtype="bfloat16"),
+            "fixed step": dict(line_search_fn=None)}
+    common = dict(outer_max_iter=LBFGS_OUTER, max_iter=LBFGS_INNER, history_size=LBFGS_HISTORY,
+                  tol=0.0, verbose=False)
+
+    def call(mel, x0, **kw):
+        return st.L_BFGS(mel, fn, init_x0=x0, **common, **kw)
+
+    loss64 = {}
+    for path in ("strong_wolfe", "fixed"):
+        kw = runs["compact" if path == "strong_wolfe" else "fixed step"]
+        loss64[path] = [rel_loss(call(mel64, start(s), **kw)) for s in LBFGS_SEEDS]
+        decades = np.log10(loss64[path])
+        print(f"  float64 {path}: relative log-mel loss over the starts of seeds "
+              f"{list(LBFGS_SEEDS)}: {[f'{v:.6e}' for v in loss64[path]]}; spread "
+              f"{decades.max() - decades.min():.4f} decades", flush=True)
+    for name, kw in runs.items():
+        path = "fixed" if name == "fixed step" else "strong_wolfe"
+        x0 = start(0).float()
+        call(mel32, x0, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        evals0, inner0 = lbfgs.evaluations, lbfgs.inner_iterations
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        y = call(mel32, x0, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        check_counts(f"L_BFGS {name}", {})  # torch.fft and cuBLAS only: no kernel of the port
+        evals, inner = lbfgs.evaluations - evals0, lbfgs.inner_iterations - inner0
+        if y.shape != (N_SAMPLES,) or y.dtype != torch.float32 or not y.is_cuda \
+                or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"L_BFGS {name}: bad output {tuple(y.shape)} {y.dtype} {y.device}")
+        loss = rel_loss(y)
+        gap = abs(np.log10(loss) - np.log10(loss64[path][0]))
+        history = 2 * LBFGS_HISTORY * N_SAMPLES * (2 if "bf16" in name else 4)
+        idle = idle_share(lambda: call(mel32, x0, **kw))
+        print(f"  L_BFGS {name}: relative log-mel loss {loss:.6e} (float64 from the same start "
+              f"{loss64[path][0]:.6e}, {gap:.4f} decades, band {LBFGS_BAND_DECADES[path]}); "
+              f"{seconds * 1e3 / LBFGS_OUTER:.2f} ms per outer step, {inner} inner iterations, "
+              f"{evals} closure evaluations ({evals / inner:.3f} per inner iteration); peak "
+              f"memory of the call {peak / 1e6:.1f} MB, the history {history / 1e6:.1f} MB; idle "
+              f"share {100 * idle:.1f} % (torch.profiler) on {smi}", flush=True)
+        if not gap <= LBFGS_BAND_DECADES[path]:
+            raise AssertionError(f"L_BFGS {name}: {gap:.4f} decades from float64")
+        if path == "strong_wolfe" and not loss < LBFGS_CEILING:
+            raise AssertionError(f"L_BFGS {name}: relative loss {loss:.3e}")
+
+
+def mel_phase(clip, window, smi) -> int:
+    """mel_to_audio at config 1's geometry: it must launch kernel A exactly
+    as griffin_lim does for MAIN_ITERS iterations, and its SC (against the
+    float64 NNLS magnitude) lie within MEL_SC_BAND_DB of the float64 call's;
+    prints the NNLS time beside the Griffin-Lim time.  Returns the
+    launches."""
+    import specinv_tpu_torch as st
+
+    fn = st.log_mel_transform(n_fft=N_FFT, n_mels=N_MELS, sample_rate=SR, hop_length=HOP,
+                              window=window)
+    mel = torch.clamp(torch.exp(fn(clip)) - 1e-6, min=0.0)  # the clip's power mel
+    kw = dict(hop_length=HOP, window=window, nnls_iter=MEL_NNLS_ITERS, max_iter=MAIN_ITERS,
+              tol=0.0)
+    st.mel_to_audio(mel, N_FFT, SR, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    y = st.mel_to_audio(mel, N_FFT, SR, **kw)
+    torch.cuda.synchronize()
+    launches = _kernel_module("gl_fullrun").launches
+    check_counts("mel_to_audio", {"gl_fullrun.launches": MAIN_ITERS})
+    if y.shape != (N_SAMPLES // HOP * HOP,) or not y.is_cuda or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"mel_to_audio: bad output {tuple(y.shape)} on {y.device}")
+    w64 = window.double()
+    lin64 = st.mel_to_linear(mel.double(), N_FFT, SR, max_iter=MEL_NNLS_ITERS)
+    y64 = st.mel_to_audio(mel.double(), N_FFT, SR, **dict(kw, window=w64), backend="fft")
+
+    def sc_db(out):
+        return float(st.sc(st.stft(out.double(), N_FFT, hop_length=HOP, window=w64).abs(), lin64))
+
+    sc32, sc64 = sc_db(y), sc_db(y64)
+    lin = st.mel_to_linear(mel, N_FFT, SR, max_iter=MEL_NNLS_ITERS)
+    nnls_ms = time_ms(lambda: st.mel_to_linear(mel, N_FFT, SR, max_iter=MEL_NNLS_ITERS), 3)
+    gl_ms = time_ms(lambda: st.griffin_lim(lin, hop_length=HOP, window=window,
+                                           max_iter=MAIN_ITERS, tol=0.0, verbose=False), 3)
+    call_ms = time_ms(lambda: st.mel_to_audio(mel, N_FFT, SR, **kw), 3)
+    print(f"  mel_to_audio: {launches} launches of gl_fullrun (as griffin_lim's {MAIN_ITERS} "
+          f"iterations), no other kernel; SC against the float64 NNLS magnitude {sc32:.4f} dB, "
+          f"float64 call {sc64:.4f} dB, gap {abs(sc32 - sc64):.4f} dB (band {MEL_SC_BAND_DB}); "
+          f"NNLS ({MEL_NNLS_ITERS} iterations) {nnls_ms:.3f} ms, griffin_lim ({MAIN_ITERS} "
+          f"iterations) {gl_ms:.3f} ms, the call {call_ms:.3f} ms on {smi}", flush=True)
+    if not abs(sc32 - sc64) <= MEL_SC_BAND_DB:
+        raise AssertionError(f"mel_to_audio: SC {sc32:.4f} dB, float64 {sc64:.4f} dB")
+    if not sc32 < SC_CEILING_DB:
+        raise AssertionError(f"mel_to_audio: SC {sc32:.2f} dB is not below {SC_CEILING_DB} dB")
+    return launches
+
+
+def edges_phase(clip, mag, window, smi) -> None:
+    """io (the native codec, a round trip of the clip), the command line in
+    a subprocess on the card, and Throughput against event_ms."""
+    import specinv_tpu_torch as st
+    from specinv_tpu_torch import io as sio
+    from specinv_tpu_torch.utils.profiling import Throughput
+
+    if sio.backend() != "native":
+        raise AssertionError(f"io backend {sio.backend()!r}, expected 'native'")
+    host = clip.cpu().numpy()
+    for pcm16, limit in ((False, 0.0), (True, 2 / 32768)):
+        path = SMOKE_DIR / f"clip_pcm16_{pcm16}.wav"
+        sio.write_wav(str(path), host, SR, pcm16=pcm16)
+        back, sr = sio.read_wav(str(path))
+        err = float(np.abs(back - np.clip(host, -1, 1)).max())
+        if sr != SR or back.shape != host.shape or not err <= limit:
+            raise AssertionError(f"io round trip (pcm16={pcm16}): sr {sr}, {back.shape}, {err}")
+    print(f"  io: backend {sio.backend()} ({sio.library_path().name}); the clip written and read "
+          "back, float32 bit for bit, PCM16 within 2/32768", flush=True)
+
+    out = SMOKE_DIR / "cli_l_bfgs.wav"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "specinv_tpu_torch", "l_bfgs", "--max-iter", "20", "--output",
+         str(out)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600)
+    line = re.search(r"^l_bfgs: [\d.]+s, output \((\d+),\), spectral convergence (-?[\d.]+) dB$",
+                     proc.stdout, re.M)
+    print(f"  python -m specinv_tpu_torch l_bfgs --max-iter 20: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: {proc.stdout.strip().splitlines()[:1]}", flush=True)
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"the command line failed: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    back, sr = sio.read_wav(str(out))
+    if sr != SR or back.shape != (int(line.group(1)),) or not np.isfinite(back).all():
+        raise AssertionError(f"the command line's WAV: sr {sr}, shape {back.shape}")
+
+    kw = dict(hop_length=HOP, window=window, max_iter=MAIN_ITERS, tol=0.0, verbose=False)
+    tp = Throughput()
+    readings, own = [], []
+    for _ in range(9):  # in turns: the call is host-paced, and the host is shared
+        tp.measure(lambda: st.griffin_lim(mag, **kw), iters=MAIN_ITERS)
+        readings.append(tp.seconds * 1e3)
+        own.append(event_ms(lambda: st.griffin_lim(mag, **kw)))
+    tp_ms, own = float(np.median(readings)), float(np.median(own))
+    print(f"  Throughput on griffin_lim (config 1, {MAIN_ITERS} iterations): {tp_ms:.3f} ms per "
+          f"call (median of 9; {MAIN_ITERS / tp_ms * 1e3:.1f} it/s), CUDA events around the "
+          f"call {own:.3f} ms (median of 9), {abs(tp_ms - own) / own:.3f} apart (limit "
+          f"{THROUGHPUT_AGREE}) on {smi}", flush=True)
+    if not abs(tp_ms - own) <= THROUGHPUT_AGREE * own:
+        raise AssertionError("Throughput disagrees with the CUDA-event timing")
+
+
 def marginal_us(fn):
     """Marginal microseconds per iteration of ``fn(n_iters)``: CUDA-event
     medians of 3 runs at 200 and at 100 iterations, differenced."""
@@ -1263,6 +1519,16 @@ def smoke(clip_job, batch_jobs) -> None:
         raise AssertionError("RTISIStreamer: committed frames differ from the offline path's")
     print("  committed frames equal the offline kernel path's, bit for bit", flush=True)
 
+    print(f"[4] main path: BASELINE config 4, L_BFGS on the {N_MELS}-band log-mel of the 10 s "
+          f"clip, {LBFGS_OUTER} x {LBFGS_INNER} iterations, history {LBFGS_HISTORY} {since()}",
+          flush=True)
+    config4_phase(clip, window, smi)
+    print(f"[4] main path: mel_to_audio, {N_MELS} mels, NNLS {MEL_NNLS_ITERS} iterations, "
+          f"griffin_lim {MAIN_ITERS} iterations ('auto') {since()}", flush=True)
+    mel_launches = mel_phase(clip, window, smi)
+    print(f"[4] io, the command line and Throughput {since()}", flush=True)
+    edges_phase(clip, mag, window, smi)
+
     from specinv_tpu_torch.parallel import admm_seq, griffin_lim_seq, make_mesh
 
     print(f"[4] main path: griffin_lim_seq and admm_seq (rho {ADMM_RHO}), 10-minute clip "
@@ -1649,7 +1915,9 @@ def smoke(clip_job, batch_jobs) -> None:
         {"name": "gl_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='gl'); "
                      "specinv_tpu/ops/pallas/gl_fullrun4.py:223",
-         "launches": gl_launches, "max_abs_err": gl_err, **timing(gl_ms, gl_plain_ms, gl_bound)},
+         # launches: griffin_lim's and mel_to_audio's main-path runs
+         "launches": gl_launches + mel_launches, "max_abs_err": gl_err,
+         **timing(gl_ms, gl_plain_ms, gl_bound)},
         {"name": "admm_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='admm'); "
                      "specinv_tpu/ops/pallas/admm_fused4.py:275",

@@ -11,9 +11,12 @@ here are chaotic in float64: no other FFT implementation (the port's
 ``tests/test_torch_quality.py`` holds the port there at twice the largest
 move this script prints, rounded up to one digit.
 
+``lbfgs_20x10`` is ``l_bfgs`` on ``|stft|`` (20 outer steps of 10 fixed-step
+iterations, history 10) from the golden's own start, the ``PRNGKey(0)`` draw.
+
 Run from the root of a checkout on the CPU: ``python3 scripts/quality_chaos.py
-[--draws 8]``.  Prints one line per case and draw, then one JSON object with
-each case's largest move in dB.
+[--draws 8] [--cases lbfgs_20x10 ...]``.  Prints one line per case and draw,
+then one JSON object with each case's largest move in dB.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-CASES = ("gl_500", "admm_25", "admm_200", "rtisi_sym_8", "rtisi_asym_32")
+CASES = ("gl_500", "admm_25", "admm_200", "rtisi_sym_8", "rtisi_asym_32", "lbfgs_20x10")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--draws", type=int, default=8)
+    parser.add_argument("--cases", nargs="+", choices=CASES, default=CASES)
     args = parser.parse_args()
     import jax
 
@@ -56,9 +60,12 @@ def main() -> None:
                                              max_iter=8, verbose=False),
         "rtisi_asym_32": lambda m: si.rtisi_la(m, look_ahead=3, asymmetric_window=True,
                                                max_iter=32, verbose=False),
+        "lbfgs_20x10": lambda m: si.l_bfgs(
+            m, lambda x: jnp.abs(si.stft(x, n_fft=n_fft)), [clip.size], outer_max_iter=20,
+            tol=0.0, verbose=False, max_iter=10, lr=1.0, history_size=10),
     }
     worst = {}
-    for name in CASES:
+    for name in args.cases:
         for seed in range(args.draws):
             noise = np.random.default_rng(seed).standard_normal(mag.shape)
             y = runs[name](mag * (1 + 1e-15 * noise))

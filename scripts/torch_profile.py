@@ -2,8 +2,10 @@
 """Where the time goes in specinv_tpu_torch's main paths on one CUDA card,
 and how far float32 RTISI-LA runs lie from a float64 one.
 
-Run from the root of a checkout: ``python3 scripts/torch_profile.py``
-(one card, nvcc; about three minutes on an H100).  It fails without a card.
+Run from the root of a checkout: ``python3 scripts/torch_profile.py
+[--only config4]`` (one card, nvcc; about three minutes on an H100;
+``--only config4`` profiles config 4 and ``mel_to_audio`` alone).  It fails
+without a card.
 
 1. ``torch.profiler`` over one call of each path, after a warm-up call:
    griffin_lim and ADMM (BASELINE configs 1 and 2: a 10 s speech-like clip,
@@ -14,8 +16,12 @@ Run from the root of a checkout: ``python3 scripts/torch_profile.py``
    refinements, a 2 s clip at batch 1 and 16) through the kernel and the
    ``torch.fft`` path; griffin_lim_seq and admm_seq (rho 0.1) on a
    10-minute clip at world size 1 (the 1x1 mesh), 20 iterations, through
-   the raw kernel dispatch and ``torch.fft``.  Per unit of work (an
-   iteration, or an output-frame step) it prints the device kernels and the
+   the raw kernel dispatch and ``torch.fft``; BASELINE config 4 (L_BFGS
+   on the 10 s clip's 128-band log-mel, 10 x 20 iterations, history 100:
+   strong Wolfe with a float32 and a bf16 history, and the fixed step) and
+   ``mel_to_audio`` (128 mels, NNLS 200, 100 Griffin-Lim iterations).  Per
+   unit of work (an iteration, an output-frame step, an outer step or a
+   call) it prints the device kernels and the
    device time, then the call's wall time, the device's idle share of it
    (1 - the union of kernel intervals over the wall time) and the top
    kernels by device time.
@@ -99,6 +105,24 @@ def main() -> None:
 
     print("[1] torch.profiler, one call after a warm-up", flush=True)
     mag10 = mags(1, 10.0)[0]
+    clip10 = torch.from_numpy(make_speech_like(int(SR * 10.0), seed=0).astype(np.float32)).to(dev)
+    logmel = st.log_mel_transform(n_fft=N_FFT, n_mels=128, sample_rate=SR, hop_length=HOP,
+                                  window=window)
+    target = logmel(clip10)
+    for name, extra in (("strong Wolfe", dict(line_search_fn="strong_wolfe")),
+                        ("strong Wolfe, bf16 history",
+                         dict(line_search_fn="strong_wolfe", history_dtype="bfloat16")),
+                        ("fixed step", {})):
+        profile_call(f"L_BFGS {name}, config 4",
+                     lambda: st.L_BFGS(target, logmel, samples=(clip10.numel(),),
+                                       outer_max_iter=10, max_iter=20, history_size=100, tol=0.0,
+                                       verbose=False, **extra), 10, "outer step")
+    mel = torch.clamp(torch.exp(target) - 1e-6, min=0.0)
+    profile_call("mel_to_audio, config 1's geometry, 128 mels",
+                 lambda: st.mel_to_audio(mel, N_FFT, SR, hop_length=HOP, window=window,
+                                         max_iter=100, tol=0.0), 1, "call")
+    if "--only" in sys.argv:
+        return
     for name, fn in (("griffin_lim", st.griffin_lim),
                      ("ADMM", lambda m, **k: st.ADMM(m, rho=0.1, **k))):
         for backend in ("kernel", "dft", "fft"):

@@ -8,7 +8,8 @@ Counterpart of ``specinv_tpu/ops/stft.py``:
 
 Exact envelope zeros (e.g. a hann window with ``center=False``) are replaced
 by 1, as in the JAX package; where ``istft`` builds the envelope itself it
-also warns, with the message the JAX package's debug check raises.
+also warns, with the message of the zero-envelope check that it plants
+(``utils/guards``: raised inside ``debug_checks()``, as the JAX package's).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..config import STFTConfig
+from ..utils import guards
 from . import fourier
 from .framing import frame, ola_envelope, overlap_add, pad_center
 
@@ -70,5 +72,7 @@ def istft(
         envelope = make_envelope(cfg, window, spec.shape[-2])
         if bool((envelope == 0).any()):
             warnings.warn(ZERO_ENVELOPE_MSG, RuntimeWarning, stacklevel=2)
+    if guards.debug_checks_enabled():
+        guards.check((envelope != 0).all(), ZERO_ENVELOPE_MSG)
     envelope = torch.where(envelope == 0, torch.ones_like(envelope), envelope)
     return x / envelope

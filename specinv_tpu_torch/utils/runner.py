@@ -107,9 +107,15 @@ def _progress_print(i, metric_name, metric_val, loss):
 
 
 def _freeze(done, old, new):
-    """``new`` unless ``done`` (elementwise over a state tuple)."""
+    """``new`` unless ``done``, leaf by leaf over a state of (nested) tuples
+    of tensors.  A leaf updated in place (the same tensor in both, as the
+    L-BFGS history) stays as it is: after a stop, what later steps write
+    there reaches only results that the freeze discards."""
     if isinstance(old, tuple):
-        return tuple(torch.where(done, o, n) for o, n in zip(old, new))
+        leaves = (_freeze(done, o, n) for o, n in zip(old, new))
+        return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
+    if old is new:
+        return new
     return torch.where(done, old, new)
 
 

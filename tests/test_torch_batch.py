@@ -62,7 +62,7 @@ def _jax_batched(case):
     return np.asarray(wrapped(worker.case_spec(case), **kw))
 
 
-@pytest.mark.parametrize("name", list(worker.BATCH_JOB))
+@pytest.mark.parametrize("name", [n for n, c in worker.BATCH_JOB.items() if c["fn"] in JAX_FN])
 def test_batched_four_ranks_match_jax(batch4, name):
     case = worker.BATCH_JOB[name]
     out, ref = batch4[name], _jax_batched(case)
@@ -74,6 +74,39 @@ def test_batched_four_ranks_match_jax(batch4, name):
         whole = PORT_FN[case["fn"]](torch.from_numpy(worker.case_spec(case)),
                                     **worker.call_kwargs(case)).numpy()
         np.testing.assert_allclose(out, whole, rtol=0, atol=0 if kernel else 1e-10)
+
+
+@pytest.mark.parametrize("name", worker.MEL_FNS)
+def test_batched_mel_paths_match_unsharded_calls(batch4, name):
+    """dp L-BFGS and dp mel_to_audio as ``__graft_entry__.dryrun_multichip``
+    runs them (per-rank log-mel targets, ``samples`` the shape inside a
+    shard): each rank's rows bit for bit the port's call on its 2 clips (one
+    thread, as the ranks run), mel_to_audio's clips also one at a time
+    within 1e-10 and against the JAX package's batched call at 1e-9 of the
+    max.  L-BFGS optimizes a rank's clips jointly, and its default start is
+    the port's own draw (not JAX's), so it is held to the per-rank calls."""
+    case = worker.BATCH_JOB[name]
+    out = batch4[name]
+    per_rank = case["batch"] // 4
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = np.concatenate([worker.mel_call(case, rows=slice(r * per_rank, (r + 1) * per_rank))
+                              .numpy() for r in range(4)])
+    finally:
+        torch.set_num_threads(threads)
+    assert out.shape == ref.shape == (case["batch"], worker.MEL_SAMPLES)
+    np.testing.assert_array_equal(out, ref)
+    if name == "mel_to_audio":
+        clips = np.stack([worker.mel_call(case, rows=i).numpy() for i in range(case["batch"])])
+        np.testing.assert_allclose(out, clips, rtol=0, atol=1e-10)
+        _, logmel = worker.mel_inputs(case["batch"])
+        mel_pow = np.exp(logmel.numpy()) - 1e-6
+        jref = np.asarray(jbatched(si.mel_to_audio, jmake_mesh(data=4, seq=1))(
+            mel_pow, worker.MEL_N_FFT, worker.MEL_SR, **case["call"]))
+        np.testing.assert_allclose(out, jref, rtol=0, atol=1e-9 * np.abs(jref).max())
+    else:
+        assert np.abs(out).max() > 1e-4  # it moved from the 1e-6 start
 
 
 def test_make_mesh_over_four_ranks(batch4):

@@ -13,7 +13,12 @@ CPU: ``make_speech_like(int(1.2 * 22050), sr=22050, seed=11)`` at n_fft 512
   itself (``scripts/quality_chaos.py``, 16 draws), so no other FFT
   implementation can replay them inside 1e-5 dB; they are held at twice that
   move, rounded up to one digit (the port reads 0.113, 0.164 and 0.324 dB
-  from the goldens).  ``lbfgs_20x10`` waits for L-BFGS.
+  from the goldens).  ``lbfgs_20x10`` (``l_bfgs`` on ``|stft|``, 20 outer
+  steps of 10 fixed-step iterations, history 10) starts from the golden's
+  own start, the JAX package's ``PRNGKey(0)`` draw, passed as ``init_x0``;
+  L-BFGS is chaotic in float64 too (the JAX package's own run moves up to
+  0.018 dB under the same perturbation, 16 draws), so it is held at 0.04 dB
+  (the port reads 0.0038 dB from the golden).
 * Griffin-Lim for 1000 iterations in float32 and in float64 through both
   packages (JAX ``griffin_lim``, the port's ``'fft'`` path): the two float64
   runs agree within 1e-6 dB (they read 1.2e-10), and the port's float32 gap
@@ -37,10 +42,20 @@ CLIP = make_speech_like(int(1.2 * 22050), sr=22050, seed=11)
 GOLDENS = json.loads((Path(__file__).parent / "goldens" / "self_quality.json").read_text())
 SELF_BAND_DB = {
     "gl_10": 1e-5, "gl_100": 1e-5, "gl_500": 1e-5, "admm_25": 1e-5,
-    "admm_200": 0.9, "rtisi_sym_8": 2.0, "rtisi_asym_32": 3.0,
+    "admm_200": 0.9, "rtisi_sym_8": 2.0, "rtisi_asym_32": 3.0, "lbfgs_20x10": 0.04,
 }
 QUALITY_ITERS = 1000
 F64_AGREE_DB = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and more threads only
+    contend with the suite's other workers (3x slower under a loaded host)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _mag():
@@ -52,7 +67,19 @@ def _metrics(y, mag):
     return {k: float(getattr(st, k)(m, mag)) for k in ("sc", "snr", "ser")}
 
 
+def _lbfgs_start():
+    """The JAX package's default L-BFGS start for the clip (``PRNGKey(0)``,
+    float64), which the golden ran from."""
+    import jax
+
+    return np.asarray(jax.random.normal(jax.random.PRNGKey(0), (CLIP.size,), dtype=np.float64))
+
+
 def _case(name, mag):
+    if name == "lbfgs_20x10":
+        return st.l_bfgs(mag, lambda x: st.stft(x, N_FFT).abs(),
+                         init_x0=torch.from_numpy(_lbfgs_start() * 1e-6), outer_max_iter=20,
+                         tol=0.0, verbose=False, max_iter=10, lr=1.0, history_size=10)
     algo, n = name.rsplit("_", 1)
     kw = dict(max_iter=int(n), verbose=False)
     if algo == "gl":

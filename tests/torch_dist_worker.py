@@ -142,7 +142,49 @@ BATCH_JOB = {
                   call=dict(max_iter=6, tol=0.0, verbose=False)),
     "gspmd_early_stop": dict(fn="gl", batch=4, scale_rows=True, gspmd=True,
                              call=dict(max_iter=60, tol=3e-2, eva_iter=5, verbose=False)),
+    # dp L-BFGS on a log-mel target and dp mel_to_audio, at the sizes of
+    # __graft_entry__.dryrun_multichip (mel_inputs), 2 clips per rank
+    "lbfgs": dict(fn="lbfgs", batch=8, call=dict(outer_max_iter=2, max_iter=2, verbose=False)),
+    "mel_to_audio": dict(fn="mel_to_audio", batch=8,
+                         call=dict(hop_length=32, nnls_iter=8, max_iter=2, tol=0.0,
+                                   verbose=False)),
 }
+MEL_FNS = ("lbfgs", "mel_to_audio")
+# __graft_entry__.dryrun_multichip's mel geometry (its 4-device seq axis):
+# n_fft 128, hop 32, 16 mels at 4 kHz, 8 * 4 * 32 samples per clip
+MEL_N_FFT, MEL_HOP, MEL_BANDS, MEL_SR, MEL_SAMPLES = 128, 32, 16, 4000.0, 1024
+
+
+def mel_inputs(batch):
+    """The port's log-mel transform (float64) and the log-mel targets of
+    ``batch`` seeded clips of 0.1 x white noise (``(B, M, T)``)."""
+    from specinv_tpu_torch.ops.mel import log_mel_transform
+
+    fn = log_mel_transform(n_fft=MEL_N_FFT, n_mels=MEL_BANDS, sample_rate=MEL_SR,
+                           hop_length=MEL_HOP, dtype=np.float64)
+    x = 0.1 * np.random.default_rng(0).standard_normal((batch, MEL_SAMPLES))
+    return fn, fn(torch.from_numpy(x))
+
+
+def mel_call(case, mesh=None, rows=slice(None)):
+    """A mel case through ``batched`` on ``mesh``, or (no mesh) through the
+    port's entry point as it is on ``rows`` of the case's input."""
+    import specinv_tpu_torch as st
+    from specinv_tpu_torch.parallel import batched
+
+    fn, logmel = mel_inputs(case["batch"])
+    lbfgs = case["fn"] == "lbfgs"
+    target = logmel if lbfgs else torch.exp(logmel) - 1e-6
+    entry = st.L_BFGS if lbfgs else st.mel_to_audio
+    if mesh is not None:
+        entry, n = batched(entry, mesh), case["batch"] // mesh.shape["data"]
+    else:
+        target = target[rows]
+        n = target.shape[0]
+    if lbfgs:  # samples: the waveform's shape inside each shard
+        return entry(target, fn, [n, MEL_SAMPLES], **case["call"])
+    return entry(target, MEL_N_FFT, MEL_SR, **case["call"])
+
 
 # The stop losses over 4 ranks: each rank's slice of these seeded arrays.
 LOSS_SHAPE = (4, 6, 33)
@@ -169,6 +211,8 @@ def _batch_case(case, mesh):
     import specinv_tpu_torch as st
     from specinv_tpu_torch.parallel import batched
 
+    if case["fn"] in MEL_FNS:
+        return mel_call(case, mesh).numpy()
     fn = {"gl": st.griffin_lim, "admm": st.ADMM, "rtisi": st.RTISI_LA}[case["fn"]]
     wrapped = batched(fn, mesh, gspmd=case.get("gspmd", False),
                       global_stop=case.get("global_stop", False))
