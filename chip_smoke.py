@@ -5,8 +5,9 @@ direct-DFT kernels, Griffin-Lim at n_fft 400 / hop 160 through 'auto',
 RTISI-LA offline and streaming (config 3), L-BFGS on a 128-band log-mel
 spectrogram (config 4), mel_to_audio, the WAV codec, the command line and
 the throughput timer, and the parallel layer: the sequence-parallel
-Griffin-Lim and ADMM on a 10-minute clip at world size 1 and 2, and batched
-Griffin-Lim over 256 clips at world size 2.
+Griffin-Lim and ADMM on a 10-minute clip at world size 1 and 2, their
+gradients, batched Griffin-Lim over 256 clips at world size 2, and the
+dry run of ``specinv_tpu_torch.graft_entry`` over 8 ranks.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card, ``nvcc`` and no network, and fails (nonzero exit, no result line)
@@ -79,7 +80,18 @@ without them.  Phases, each of which raises on failure:
    world 1 after 5 iterations, and every final SC against a float64 seq
    run; ``batched(griffin_lim)`` at world size 2 over 256 ten-second clips
    bit for bit against one unsharded call, and with ``global_stop`` stopping
-   on the unsharded call's iteration;
+   on the unsharded call's iteration; the seq gradients at full width, d
+   mean((y - clip)^2) / d spec of 5 iterations (tol 0) from the 10-minute
+   clip's SPSI seed: through ``'kernel'`` (exactly 5 raw launches in the
+   forward pass and no other kernel; the backward replays the plain twin)
+   and ``'fft'`` at world size 1, ``'kernel'`` with ``remat=True``, the
+   unsharded ``griffin_lim`` / ``ADMM`` through ``'kernel'``, and in the two
+   ranks of world size 2 (the same gradient on both, bit for bit), held
+   against each other at limits derived from a float64 ``'fft'`` seq
+   gradient and ``'kernel'`` against that gradient at JAX's 5e-2, with the
+   forward and backward times per iteration and the peak memory; then
+   ``graft_entry.dryrun_multichip(8)``, 8 ranks on ``cuda:0`` over gloo in
+   a subprocess, its eleven variants and wall time;
 5. marginal microseconds per iteration of the kernel, 'dft' ('high' and
    'highest') and ``torch.fft`` paths of GL and ADMM, and of the 'dft' and
    ``torch.fft`` paths at 400/160, from CUDA events, by differencing 200 and
@@ -835,6 +847,216 @@ FEW_ITERS = 5           # world 2 against world 1, sample by sample
 GLOBAL_STOP_TOL = 5e-2  # the batched global-stop run: fires before 100 iterations
 
 
+# Seq gradients at full width (phase 4): d mean((y - clip)^2) / d spec of
+# FEW_ITERS iterations at tol 0 on the 10-minute clip (y and the clip cut to
+# their common length), spec the clip's complex SPSI seed (float32, made
+# once on the card; the float64 runs take it widened).  From the magnitude
+# a float32 gradient carries the seed's float32 phase sums over 25840
+# frames: on an H100 80GB HBM3, 700 W, it lay 2.4 (GL) and 1.2 (ADMM) of
+# the max from the float64 one.  Seq 'kernel' against seq 'fft' at JAX's
+# band (test_sharding.py:252; the kernel's plain twin takes |S| as
+# sqrt(re^2 + im^2 + 1e-30) where the fft path takes abs), the fft side in
+# float64: the float32 fft ADMM gradient itself lay 0.94 of the max from
+# the float64 one (kernel 1.3e-2), a few entries where the projection's
+# 1/|Tz| magnifies float32 rounding; GL's float32 pair read 2.7e-2.
+GRAD_KERNEL_FFT_BAND = 5e-2
+# World 2 against world 1, remat against none and seq against unsharded
+# 'kernel': each limit twice the sum of the two sides' distances from the
+# float64 'fft' seq gradient, rounded up to one digit.  Readings (same card,
+# relative to the max): GL kernel 1.030e-2, world 2 1.030e-2, remat
+# 1.030e-2, unsharded 2.755e-2; ADMM kernel 1.336e-2, world 2 1.336e-2,
+# remat 1.336e-2, unsharded 4.995e-2.  The pairs read: world 2 2.5e-8 /
+# 4.7e-7, remat 0 (bit for bit), unsharded 3.2e-2 / 4.1e-2.
+GRAD_LIMITS = {
+    ("griffin_lim_seq", "world 2"): 5e-2, ("griffin_lim_seq", "remat"): 5e-2,
+    ("griffin_lim_seq", "unsharded"): 8e-2,
+    ("admm_seq", "world 2"): 6e-2, ("admm_seq", "remat"): 6e-2, ("admm_seq", "unsharded"): 0.2,
+}
+# The dry run on the card: graft_entry.dryrun_multichip over DRYRUN_RANKS
+# ranks on cuda:0 (a 2 x 4 mesh), in a subprocess.
+DRYRUN_RANKS, DRYRUN_TIMEOUT_S = 8, 300
+DRYRUN_VARIANTS = 11
+
+
+def seq_grad(call, spec, clip, expected, label):
+    """d mean((y - clip)^2) / d spec of ``y = call(spec)``.  Every launch
+    count is set to 0 just before the forward pass and read just after: it
+    must equal ``expected``.  Returns the gradient, the device times of the
+    forward and the backward pass (CUDA events, ms), the peak memory above
+    what was allocated before the call (bytes) and the launch counts of
+    both passes (the backward's: a remat run's recomputed launches)."""
+    s = spec.detach().clone().requires_grad_()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ev[0].record()
+    y = call(s)
+    n = min(y.shape[-1], clip.shape[-1])
+    loss = ((y[..., :n] - clip[..., :n]) ** 2).mean()
+    ev[1].record()
+    torch.cuda.synchronize()
+    fwd = read_counts()
+    check_counts(f"{label}, forward", expected)
+    reset_counts()
+    ev[2].record()
+    loss.backward()
+    ev[3].record()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(s.grad).all()):
+        raise AssertionError(f"{label}: non-finite gradient")
+    return dict(grad=s.grad, fwd_ms=ev[0].elapsed_time(ev[1]), bwd_ms=ev[2].elapsed_time(ev[3]),
+                peak=torch.cuda.max_memory_allocated() - base, fwd_launches=fwd,
+                bwd_launches=read_counts())
+
+
+def seq_grad_rank(rank, mesh, spec, clip, kw):
+    """The world-2 ranks' seq gradients through 'kernel' (GL and ADMM):
+    each rank saves its own gradient under ``SMOKE_DIR``."""
+    from specinv_tpu_torch.parallel import admm_seq, griffin_lim_seq
+
+    for name, fn, counter, extra in (
+        ("griffin_lim_seq", griffin_lim_seq, "gl_fullrun.iteration_launches", {}),
+        ("admm_seq", admm_seq, "admm_fullrun.iteration_launches", {"rho": ADMM_RHO}),
+    ):
+        r = seq_grad(lambda s, fn=fn, extra=extra: fn(s, mesh, max_iter=FEW_ITERS, tol=0.0,
+                                                       backend="kernel", **extra, **kw),
+                     spec, clip, {counter: FEW_ITERS}, f"{name} gradient rank {rank}")
+        np.save(SMOKE_DIR / f"{name}_grad_world2_rank{rank}.npy", r["grad"].cpu().numpy())
+
+
+def grad_phase(spec, clip, window, smi) -> dict:
+    """The seq gradients at world 1 in this process, GL and ADMM: through
+    'kernel' (FEW_ITERS raw launches in the forward pass and no other kernel)
+    and 'fft', each after a warm-up call and again at twice FEW_ITERS for
+    the times per iteration; 'kernel' with ``remat=True``; the unsharded
+    call through 'kernel'; and the float64 'fft' seq gradient, the anchor
+    of the limits.  Prints the times, peak memory and distances; returns
+    ``{name: {run: result}}`` and the launches of the phase
+    (``'launches'``)."""
+    import specinv_tpu_torch as st
+    from specinv_tpu_torch.parallel import admm_seq, griffin_lim_seq, make_mesh
+
+    mesh = make_mesh()
+    kw = dict(hop_length=HOP, window=window)
+    spec64 = spec.to(torch.complex128 if spec.is_complex() else torch.float64)
+    out = {"launches": {}}
+    for name, fn, counter, whole, whole_counter, extra in (
+        ("griffin_lim_seq", griffin_lim_seq, "gl_fullrun.iteration_launches", st.griffin_lim,
+         "gl_fullrun.launches", {}),
+        ("admm_seq", admm_seq, "admm_fullrun.iteration_launches", st.ADMM,
+         "admm_fullrun.launches", {"rho": ADMM_RHO}),
+    ):
+        def seq(backend, iters=FEW_ITERS, remat=False, fn=fn, extra=extra, kw=kw):
+            return lambda s: fn(s, mesh, max_iter=iters, tol=0.0, backend=backend, remat=remat,
+                                **extra, **kw)
+
+        def unsharded(s, whole=whole, extra=extra):
+            return whole(s, max_iter=FEW_ITERS, tol=0.0, verbose=False, backend="kernel",
+                         **extra, **kw)
+
+        runs = {
+            "kernel": (seq("kernel"), spec, clip, {counter: FEW_ITERS}),
+            "kernel 2x": (seq("kernel", 2 * FEW_ITERS), spec, clip, {counter: 2 * FEW_ITERS}),
+            "fft": (seq("fft"), spec, clip, {}),
+            "fft 2x": (seq("fft", 2 * FEW_ITERS), spec, clip, {}),
+            "remat": (seq("kernel", remat=True), spec, clip, {counter: FEW_ITERS}),
+            "unsharded": (unsharded, spec, clip, {whole_counter: FEW_ITERS}),
+            "float64": (seq("fft", kw=dict(hop_length=HOP, window=window.double())), spec64,
+                        clip.double(), {}),
+        }
+        # the first backward pass of a shape pays its set-up (cuFFT plans, the
+        # allocator): a warm-up call of each backend, counted but not timed
+        for warm in ("kernel", "fft"):
+            r = seq_grad(*runs[warm], f"{name} {warm} warm-up")
+            for key, v in r["fwd_launches"].items():
+                out["launches"][key] = out["launches"].get(key, 0) + v
+            del r
+        res = {}
+        for run, args in runs.items():
+            res[run] = r = seq_grad(*args, f"{name} {run}")
+            for counts in (r["fwd_launches"], r["bwd_launches"]):
+                for key, v in counts.items():
+                    out["launches"][key] = out["launches"].get(key, 0) + v
+            if run.endswith("2x"):
+                del r["grad"]
+        for backend in ("kernel", "fft"):
+            one, two = res[backend], res[f"{backend} 2x"]
+            print(f"  {name} gradient, world 1, '{backend}': forward "
+                  f"{(two['fwd_ms'] - one['fwd_ms']) / FEW_ITERS:.3f} ms/iter, backward "
+                  f"{(two['bwd_ms'] - one['bwd_ms']) / FEW_ITERS:.3f} ms/iter "
+                  f"({2 * FEW_ITERS} - {FEW_ITERS} iterations); whole call at {FEW_ITERS}: "
+                  f"forward {one['fwd_ms']:.3f} ms, backward {one['bwd_ms']:.3f} ms, peak "
+                  f"memory {one['peak'] / 2**20:.1f} MiB ({2 * FEW_ITERS}: "
+                  f"{two['peak'] / 2**20:.1f}) on {smi}", flush=True)
+        g64 = res["float64"]["grad"]
+        print(f"  {name} gradient, world 1: 'kernel' against 'fft' "
+              f"{rel_err(res['kernel']['grad'], res['fft']['grad']):.3e} of the max; from the "
+              f"float64 'fft' gradient: " + ", ".join(
+                  f"{run} {rel64(res[run]['grad'], g64):.3e}"
+                  for run in ("kernel", "fft", "remat", "unsharded"))
+              + f"; remat's backward launches {res['remat']['bwd_launches'][counter]}, float64 "
+                f"peak {res['float64']['peak'] / 2**20:.1f} MiB", flush=True)
+        out[name] = res
+    return out
+
+
+def check_grads(grads) -> None:
+    """The seq gradients against each other (``grad_phase``'s and the
+    world-2 ranks'): both ranks hold the same gradient, bit for bit; seq
+    'kernel' against the float64 seq 'fft' gradient at JAX's band; world 2
+    against world 1, remat against none and seq against unsharded 'kernel'
+    at GRAD_LIMITS."""
+    for name in ("griffin_lim_seq", "admm_seq"):
+        res = grads[name]
+        g64, kernel = res["float64"]["grad"], res["kernel"]["grad"]
+        ranks = [torch.from_numpy(np.load(SMOKE_DIR / f"{name}_grad_world2_rank{r}.npy"))
+                 .to(kernel.device) for r in range(SEQ_SHARDS)]
+        if not all(torch.equal(g, ranks[0]) for g in ranks[1:]):
+            raise AssertionError(f"{name}: the world-2 ranks' gradients differ")
+        print(f"  {name} gradient, 'kernel' against float32 'fft': "
+              f"{rel64(kernel, res['fft']['grad']):.3e}", flush=True)
+        check(f"{name} gradient, 'kernel' against float64 'fft'", rel64(kernel, g64),
+              GRAD_KERNEL_FFT_BAND)
+        pairs = {"world 2": (ranks[0], kernel), "remat": (res["remat"]["grad"], kernel),
+                 "unsharded": (kernel, res["unsharded"]["grad"])}
+        for pair, (a, b) in pairs.items():
+            print(f"  {name} gradient, {pair}: from float64 {rel64(a, g64):.3e} and "
+                  f"{rel64(b, g64):.3e}", flush=True)
+            check(f"{name} gradient, {pair} against its pair", rel64(a, b),
+                  GRAD_LIMITS[(name, pair)])
+
+
+def dryrun_phase() -> float:
+    """``python -m specinv_tpu_torch.graft_entry 8`` in a subprocess (its
+    own process group, killed whole on a time-out): it must exit 0 and print the
+    line of all eleven variants.  Returns its wall time in seconds."""
+    import signal
+
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "specinv_tpu_torch.graft_entry", str(DRYRUN_RANKS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - start
+    lines = [ln for ln in out.splitlines() if ln.startswith("dryrun_multichip OK: ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"dry run exited with {proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-4000:]}")
+    n_variants = len(re.findall(r"[\w-]+ \([\d, ]*\)", lines[0]))
+    print(f"  {lines[0]}", flush=True)
+    if n_variants != DRYRUN_VARIANTS:
+        raise AssertionError(f"dry run printed {n_variants} variants")
+    return wall
+
+
 def seq_rank(rank, world, store, clip_path, batch_paths):
     """One of the two ranks of the world-2 phase, both on ``cuda:0`` over
     gloo (a file store): the seq main path of both algorithms (launch
@@ -878,6 +1100,10 @@ def seq_rank(rank, world, store, clip_path, batch_paths):
             for backend in ("kernel", "fft"):
                 res[f"{name} {backend} us/iter"] = seq_us(
                     fn, mag, mesh, dict(kw, backend=backend, **extra), dist.barrier)
+        seed = torch.from_numpy(np.load(SMOKE_DIR / "grad_seed.npy")).to(mesh.device)
+        clip = torch.from_numpy(np.load(clip_path)[0]).to(mesh.device)
+        seq_grad_rank(rank, mesh, seed, clip, kw)
+        del seed, clip
 
         mags = load_magnitudes(batch_paths, window)
         data_mesh = make_mesh(data=world)
@@ -1570,6 +1796,14 @@ def smoke(clip_job, batch_jobs) -> None:
         check(f"{name} world 1 against the unsharded call, x after {FEW_ITERS}",
               r["whole_few"], SEQ_WHOLE_LIMITS[name])
 
+    print(f"[4] seq gradients at full width: d mean((y - clip)^2) / d spec, {FEW_ITERS} "
+          f"iterations, tol 0, from the SPSI seed of the 10-minute clip; world size 1 "
+          f"{since()}", flush=True)
+    grad_seed = st.phase_init(mag10, hop_length=HOP, window=win1)  # also the ranks' input
+    np.save(SMOKE_DIR / "grad_seed.npy", grad_seed.cpu().numpy())
+    grads = grad_phase(grad_seed, clip10, win1, smi)
+    del grad_seed
+
     print(f"[4] main path at world size 2: two processes on cuda:0 over gloo (file store under "
           f"build/), griffin_lim_seq / admm_seq, then batched(griffin_lim) over "
           f"{BATCH_CLIPS} clips {since()}", flush=True)
@@ -1633,6 +1867,13 @@ def smoke(clip_job, batch_jobs) -> None:
                              f"{b0['unsharded stop iterations']}")
     check("batched global stop against the unsharded call, x", b0["global stop rel err"],
           X_LIMIT)
+    check_grads(grads)
+
+    print(f"[4] the dry run on the card: graft_entry.dryrun_multichip({DRYRUN_RANKS}) in a "
+          f"subprocess, {DRYRUN_RANKS} ranks on cuda:0 over gloo {since()}", flush=True)
+    dry_s = dryrun_phase()
+    print(f"  dry run: exit 0 in {dry_s:.1f} s (wall, spawn and set-up included) on {smi}",
+          flush=True)
 
     print(f"[5] marginal time per iteration (CUDA events, 200 - 100 iterations) {since()}",
           flush=True)
@@ -1907,6 +2148,8 @@ def smoke(clip_job, batch_jobs) -> None:
                                                       fp64_flops=raw_fft)
     print(f"  raw dispatch bounds per launch (ms): {raw_bounds}", flush=True)
 
+    grad_launches = grads["launches"]
+
     def timing(ms, plain_ms, bnd, library_ms=None):
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
@@ -1915,13 +2158,16 @@ def smoke(clip_job, batch_jobs) -> None:
         {"name": "gl_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='gl'); "
                      "specinv_tpu/ops/pallas/gl_fullrun4.py:223",
-         # launches: griffin_lim's and mel_to_audio's main-path runs
-         "launches": gl_launches + mel_launches, "max_abs_err": gl_err,
+         # launches: griffin_lim's and mel_to_audio's main-path runs and the
+         # unsharded gradient's forward pass
+         "launches": gl_launches + mel_launches + grad_launches["gl_fullrun.launches"],
+         "max_abs_err": gl_err,
          **timing(gl_ms, gl_plain_ms, gl_bound)},
         {"name": "admm_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='admm'); "
                      "specinv_tpu/ops/pallas/admm_fused4.py:275",
-         "launches": admm_launches, "max_abs_err": admm_err,
+         "launches": admm_launches + grad_launches["admm_fullrun.launches"],
+         "max_abs_err": admm_err,
          **timing(admm_ms, admm_plain_ms, admm_bound)},
         # the transform of fft.cu (rfft.cuh) runs inside every gl_fullrun
         # and admm_fullrun launch (the RTISI kernel runs it too, in its own
@@ -1929,7 +2175,8 @@ def smoke(clip_job, batch_jobs) -> None:
         # torch.fft.rfft + irfft
         {"name": "fft", "route": "cuda", "source": "specinv_tpu_torch/csrc/fft.cu",
          "replaces": "specinv_tpu/ops/pallas/fft4.py:322; specinv_tpu/ops/pallas/fft4.py:367",
-         "launches": gl_launches + admm_launches,
+         "launches": gl_launches + admm_launches + grad_launches["gl_fullrun.launches"]
+         + grad_launches["admm_fullrun.launches"],
          "max_abs_err": fft_err, **timing(fft_ms, fft_plain_ms, fft_bound, fft_plain_ms)},
         # launches: RTISI_LA's and then the streamer's, on the main path; ms
         # and bound: one launch of 8 steps at B = 1; plan: its cluster
@@ -1956,19 +2203,23 @@ def smoke(clip_job, batch_jobs) -> None:
          "called_ms": dft_times[("admm_fused", "high")][1],
          "yardstick_ms": yard["config 1"]["high"]},
         # the raw dispatch of kernels A and C: one launch per iteration and
-        # shard; launches: counted on the world-1 seq main path (tol 0), ms
-        # and bound: one launch at that path's shape, the whole 10-minute
-        # clip (25843 frames); max_abs_err: every raw check of phase 3
+        # shard; launches: counted on the world-1 seq main path (tol 0) and
+        # in the world-1 gradient phase (forward passes, and the remat
+        # run's recomputation in its backward pass), ms and bound: one
+        # launch at that path's shape, the whole 10-minute clip (25843
+        # frames); max_abs_err: every raw check of phase 3
         {"name": "gl_iteration", "route": "cuda",
          "source": "specinv_tpu_torch/csrc/gl_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/gl_fused4.py:110",
-         "launches": seq1["griffin_lim_seq"]["launches"], "max_abs_err": gl_raw_err,
+         "launches": seq1["griffin_lim_seq"]["launches"]
+         + grad_launches["gl_fullrun.iteration_launches"], "max_abs_err": gl_raw_err,
          **timing(*raw_times[("gl_iteration", "world 1")],
                   raw_bounds[("gl_iteration", "world 1")])},
         {"name": "admm_iteration", "route": "cuda",
          "source": "specinv_tpu_torch/csrc/admm_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/admm_fused4.py:89",
-         "launches": seq1["admm_seq"]["launches"], "max_abs_err": admm_raw_err,
+         "launches": seq1["admm_seq"]["launches"]
+         + grad_launches["admm_fullrun.iteration_launches"], "max_abs_err": admm_raw_err,
          **timing(*raw_times[("admm_iteration", "world 1")],
                   raw_bounds[("admm_iteration", "world 1")])},
     ]

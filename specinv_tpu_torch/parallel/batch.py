@@ -5,7 +5,9 @@ every algorithm, so data parallelism is placement: each rank of the mesh's
 ``data`` axis inverts its slice of the batch with the whole entry point
 (the hand-written kernels included), and the waveforms are all-gathered, so
 every rank returns the whole batch.  Fixed-iteration runs (``tol=0``) give
-each clip what the unsharded call gives it.
+each clip what the unsharded call gives it.  The input enters through
+``utils.collective.replicated`` and leaves through its differentiable
+``all_gather``, so a gradient flows as through JAX's ``shard_map``.
 
 The JAX package has two lowerings; here both are per-rank runs:
 
@@ -26,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..utils.collective import bound
+from ..utils.collective import all_gather, bound, replicated
 from . import mesh as mesh_mod
 from .mesh import Mesh
 
@@ -55,6 +57,10 @@ def batched(
     algorithm, and trimmed after.  Early stopping (``tol > 0``) is per rank
     unless ``global_stop`` (or ``gspmd``) is set; ``global_stop`` needs an
     entry point that takes ``loss_psum_axes`` (``griffin_lim``, ``ADMM``).
+
+    Differentiable, as JAX's ``shard_map`` lowering: every rank must call
+    ``backward`` on the same loss of the whole output, and every rank then
+    holds the whole gradient of ``spec``.
     """
     if global_stop and not gspmd and _takes(fn, "loss_psum_axes") is False:
         raise ValueError(
@@ -79,10 +85,12 @@ def batched(
         pad = (-B) % n
         if pad:
             spec = torch.cat([spec, spec.new_zeros((pad, *spec.shape[1:]))], dim=0)
-        local = spec[mesh_mod.batch_sharding(mesh, spec.shape[0], axis_name)]
+        group = mesh.group(axis_name)
+        rows = mesh_mod.batch_sharding(mesh, spec.shape[0], axis_name)
+        local = replicated(spec, [group])[rows]
         with bound(mesh):
             out = fn(local, *args, **kwargs)
-        out = mesh_mod.all_gather(out, mesh.group(axis_name), dim=0)
+        out = all_gather(out, group, dim=0)
         return out[:B] if pad else out
 
     return wrapper

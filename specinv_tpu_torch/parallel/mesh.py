@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.collective import staged
+from ..utils.collective import all_gather  # noqa: F401  (the layer's gather, differentiable)
 
 AXES = ("data", "seq")
 
@@ -142,15 +142,3 @@ def shard_batch(x, mesh: Mesh, axis_name: str = "data") -> torch.Tensor:
     """This rank's slice of ``x``'s batch axis, on the mesh's device."""
     x = torch.as_tensor(x)
     return x[batch_sharding(mesh, x.shape[0], axis_name)].to(mesh.device)
-
-
-def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """The group's ``t`` concatenated along ``dim`` in rank order (``t``
-    itself for a None group)."""
-    if group is None:
-        return t
-    host = staged(t, group)
-    src = t.contiguous().cpu() if host else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(t.device)

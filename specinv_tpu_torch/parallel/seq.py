@@ -11,8 +11,8 @@ shards in an iteration lie at chunk boundaries:
 
 Each is one exchange of a ``(B, H)`` slab per iteration with the
 neighbouring ranks of the mesh's ``seq`` axis, the counterpart of
-``lax.ppermute`` (:func:`_shift`); a shard with no partner receives zeros,
-as ``ppermute`` gives them.  ``pad_mode='circular'`` adds one exchange
+``lax.ppermute`` (``utils.collective.shift``); a shard with no partner
+receives zeros, as ``ppermute`` gives them.  ``pad_mode='circular'`` adds one exchange
 between shard 0 and shard ``n - 1`` (the wrap pad's source samples lie on
 the opposite edge shard).  Everything else (transforms, momentum or the
 ADMM update, projection, envelope divide, re-pad) is local.
@@ -44,10 +44,20 @@ the card where the kernels take the config, else ``'fft'``.  The
 exchange's transport is set by the process group's backend
 (``utils.collective.staged``).
 
-Gradients through this path are not ported yet (the JAX package
-differentiates it with a ``custom_vjp`` around the kernel; the port would
-need an ``autograd.Function`` for the exchange whose backward is the
-reverse exchange): an input that requires grad raises.
+Gradients, as JAX's ``jax.grad`` through ``shard_map``: the spectrogram
+enters through ``utils.collective.replicated``, whose backward sums the
+cotangent over the ranks that use it (the seq axis, and the data axis under
+``shard_batch_axis``), so every rank holds the whole gradient; the
+exchanges are ``collective.shift`` (backward: the reverse exchange) and the
+final gathers ``collective.all_gather`` (backward: this rank's slice).  On
+``'kernel'`` each launch's backward replays its plain twin under autograd
+(``ops/cuda/_fullrun.replay_backward``), as JAX's ``custom_vjp`` replays
+``gl_xla_twin4`` / ``admm_xla_twin4``; no backward kernel.  The stop rule's
+sums run on detached values, so ``mode='fori'`` with tol > 0 stays
+differentiable.  Every rank must call ``backward`` on the same loss of the
+whole waveform: the backward passes exchange, in the same order on every
+rank.  ``remat=True`` recomputes each iteration in the backward pass,
+exchanges included.
 """
 from __future__ import annotations
 
@@ -55,7 +65,6 @@ import math
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import STFTConfig
@@ -66,7 +75,7 @@ from ..ops import fourier
 from ..ops.cuda import admm_fullrun, gl_fullrun
 from ..ops.framing import frame, ola_envelope, overlap_add, pad_center
 from ..ops.stft import istft
-from ..utils.collective import all_reduce_sum, staged
+from ..utils.collective import all_gather, all_reduce_sum, replicated, shift
 from ..utils.runner import iterate
 from . import mesh as mesh_mod
 from .mesh import Mesh
@@ -111,24 +120,6 @@ def _geometry(cfg: STFTConfig, T: int, n: int):
     return Ts, T_pad, C, H, Lp, L_out, b_end, e_local
 
 
-def _shift(t: torch.Tensor, group, dst, src) -> torch.Tensor:
-    """Send ``t`` to global rank ``dst`` and receive a tensor shaped like it
-    from ``src`` (either may be None); zeros where nothing arrives."""
-    if dst is None and src is None:
-        return torch.zeros_like(t)
-    host = staged(t, group)
-    send = t.contiguous().cpu() if host else t.contiguous()
-    recv = torch.zeros_like(send)
-    ops = []
-    if dst is not None:
-        ops.append(dist.P2POp(dist.isend, send, dst, group))
-    if src is not None:
-        ops.append(dist.P2POp(dist.irecv, recv, src, group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv.to(t.device)
-
-
 def _set(x: torch.Tensor, start: int, vals: torch.Tensor) -> torch.Tensor:
     """``x`` with ``x[..., start : start + len(vals)] = vals``."""
     stop = start + vals.shape[-1]
@@ -146,10 +137,11 @@ def _resolve(backend: str, cfg: STFTConfig, window, device) -> str:
 
 
 def _run_seq(target_tm, init_spec_tm, window, scalar, tol, cfg: STFTConfig, mesh: Mesh,
-             max_iter: int, eva_iter: int, shard_batch_axis: bool, backend: str,
-             algo: str, remat: bool, total: int) -> torch.Tensor:
+             max_iter: int, eva_iter: int, groups, backend: str, algo: str, remat: bool,
+             total: int) -> torch.Tensor:
     """The shard body on this rank: target / seed ``(B', T, F)`` (this
-    rank's clips) -> the whole trimmed waveform ``(B', L_out)``."""
+    rank's clips) -> the whole trimmed waveform ``(B', L_out)``; ``groups``:
+    the process groups of the ranks that share the input."""
     n, s = mesh.shape["seq"], mesh.index("seq")
     group = mesh.group("seq")
     T = target_tm.shape[-2]
@@ -182,13 +174,13 @@ def _run_seq(target_tm, init_spec_tm, window, scalar, tol, cfg: STFTConfig, mesh
     def extend(x_chunk):
         """Append the right neighbour's first H samples (zeros on the last
         shard)."""
-        halo = _shift(x_chunk[..., :H], group, left, right)
+        halo = shift(x_chunk[..., :H], group, left, right)
         return torch.cat([x_chunk, halo], dim=-1)  # (B', C + H)
 
     def finish_signal(y):
         """Exchange the overlap-add spill, divide by the envelope, re-pad
         the edges on the edge shards."""
-        tail = _shift(y[..., C:], group, right, left)
+        tail = shift(y[..., C:], group, right, left)
         y_own = torch.cat([y[..., :H] + tail, y[..., H:C]], dim=-1)
         x_div = torch.where(mask_loc, y_own / env_loc, torch.zeros_like(y_own))
         if not P or cfg.pad_mode == "constant":  # constant: already zero outside
@@ -202,7 +194,7 @@ def _run_seq(target_tm, init_spec_tm, window, scalar, tol, cfg: STFTConfig, mesh
                 recv_left, recv_right = tail_src, head_src
             elif s in (0, n - 1):
                 other = mesh.peer("seq", n - 1 - s)
-                recv_left = recv_right = _shift(
+                recv_left = recv_right = shift(
                     tail_src if s == n - 1 else head_src, group, other, other)
         elif cfg.pad_mode == "reflect":
             recv_left = x_div[..., P + 1 : 2 * P + 1].flip(-1)
@@ -250,41 +242,37 @@ def _run_seq(target_tm, init_spec_tm, window, scalar, tol, cfg: STFTConfig, mesh
                                         with_loss=evaluating, valid_t=valid)
         return (finish_signal(x_raw), plane), (stats[0] if evaluating else None)
 
-    axes = ("seq", "data") if shard_batch_axis else ("seq",)
-    groups = [mesh.group(a) for a in axes]
-
+    # the stop loss only decides the done flag: detached, so that no
+    # collective enters the backward graph
     def psum_mse(out, tgt):
         # rows past T have a zero target but read real signal tail: masked,
         # or the stop iteration would move away from the unsharded path's
-        d = torch.where(valid_rows, out - tgt, torch.zeros_like(out))
+        d = torch.where(valid_rows, out.detach() - tgt, torch.zeros_like(out))
         return all_reduce_sum(torch.sum((d * d).real), groups) / total
 
     def psum_stats(stats, _tgt):
-        return all_reduce_sum(stats[0], groups) / total
+        return all_reduce_sum(stats[0].detach(), groups) / total
 
     step = kernel_step if kernel else (admm_step if algo == "admm" else gl_step)
     state = iterate(
         step, (x_chunk0, pre0), tgt_loc, max_iter=max_iter, tol=tol, eva_iter=eva_iter,
         loss_fn=psum_stats if kernel else psum_mse, mode="fori", remat=remat,
     )
-    x = mesh_mod.all_gather(state[0], group, dim=-1)
+    x = all_gather(state[0], group, dim=-1)
     return x[..., P : P + L_out]
 
 
-def _prepare(spec, mesh: Mesh, shard_batch_axis: bool, **stft_kwargs):
+def _prepare(spec, mesh: Mesh, shard_batch_axis: bool, groups, **stft_kwargs):
     """The spectrogram on the mesh's device, time-major, this rank's clips
     (all of them unless ``shard_batch_axis``); the global element count."""
-    if isinstance(spec, torch.Tensor) and spec.requires_grad:
-        raise NotImplementedError(
-            "gradients through the sequence-parallel path are not ported yet (the "
-            "halo exchange needs an autograd.Function whose backward is the "
-            "reverse exchange); detach the input, or use griffin_lim / ADMM")
     if isinstance(spec, torch.Tensor):
         spec = spec.to(mesh.device)
     else:
         spec = torch.as_tensor(np.asarray(spec), device=mesh.device)
     if spec.dtype in (torch.bfloat16, torch.float16):
         spec = spec.float()
+    # each rank differentiates through its own rows and chunk only
+    spec = replicated(spec, groups)
     spec_tm, was_2d, cfg, window = prepare_spec(spec, **stft_kwargs)
     if window.is_complex():
         raise ValueError("the sequence-parallel path needs a real window")
@@ -301,13 +289,16 @@ def _prepare(spec, mesh: Mesh, shard_batch_axis: bool, **stft_kwargs):
 def _run(spec, mesh, algo, scalar, max_iter, tol, eva_iter, shard_batch_axis, backend,
          remat, stft_kwargs):
     _check_seq_backend(backend, algo)
+    # the ranks that share the input: the stop loss and the gradient sum
+    # over them
+    groups = [mesh.group(a) for a in (("seq", "data") if shard_batch_axis else ("seq",))]
     target_tm, cmplx_tm, was_2d, cfg, window, total = _prepare(
-        spec, mesh, shard_batch_axis, **stft_kwargs)
+        spec, mesh, shard_batch_axis, groups, **stft_kwargs)
     backend = _resolve(backend, cfg, window, mesh.device)
     x = _run_seq(target_tm, cmplx_tm, window, scalar, float(tol), cfg, mesh, max_iter,
-                 eva_iter, shard_batch_axis, backend, algo, remat, total)
+                 eva_iter, groups, backend, algo, remat, total)
     if shard_batch_axis:
-        x = mesh_mod.all_gather(x, mesh.group("data"), dim=0)
+        x = all_gather(x, mesh.group("data"), dim=0)
     return restore_output(x, was_2d)
 
 
@@ -357,7 +348,8 @@ def admm_seq(
     form, rows past the true frame count held inert, with the time axis
     sharded and the same exchanges as :func:`griffin_lim_seq`.  On
     ``'kernel'`` each shard's launch takes its own true-frame count, 0 on a
-    shard that holds only padding.
+    shard that holds only padding.  Gradients as :func:`griffin_lim_seq`:
+    every rank calls ``backward`` on the same loss.
     """
     if rho <= 0:
         raise ValueError(f"rho must be > 0, got {rho}")

@@ -21,6 +21,12 @@ the max, the JAX package's HIGHEST band (``test_torch_griffin_lim.py``), and bit
 port's unsharded kernel call; RTISI-LA over 12 frames, as
 ``test_torch_rtisi_la.py`` (it doubles a rounding difference per frame);
 the stop losses at rtol 1e-12.
+
+Gradients (the job's ``grad`` cases, float64): ``batched(griffin_lim |
+ADMM | RTISI_LA)``'s d mean((y - x)^2) / d spec on every rank, held against
+the port's unsharded call's within 1e-12 of the max, an uneven batch
+included (not bit for bit: the ranks transform 2 clips where the unsharded
+call transforms the whole batch; read 4.8e-15 at most).
 """
 import jax
 import jax.numpy as jnp
@@ -45,6 +51,7 @@ PORT_FN = {"gl": st.griffin_lim, "admm": st.ADMM, "rtisi": st.RTISI_LA}
 # cases whose per-shard result the JAX suite holds to the unsharded call
 # (a per-shard stop without global_stop may differ from it)
 UNSHARDED_EQUAL = {name for name in worker.BATCH_JOB if name != "uneven_early_stop"}
+GRAD_CASES = [name for name, case in worker.BATCH_JOB.items() if case.get("grad")]
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +69,8 @@ def _jax_batched(case):
     return np.asarray(wrapped(worker.case_spec(case), **kw))
 
 
-@pytest.mark.parametrize("name", [n for n, c in worker.BATCH_JOB.items() if c["fn"] in JAX_FN])
+@pytest.mark.parametrize("name", [n for n, c in worker.BATCH_JOB.items()
+                                  if c["fn"] in JAX_FN and not c.get("grad")])
 def test_batched_four_ranks_match_jax(batch4, name):
     case = worker.BATCH_JOB[name]
     out, ref = batch4[name], _jax_batched(case)
@@ -74,6 +82,15 @@ def test_batched_four_ranks_match_jax(batch4, name):
         whole = PORT_FN[case["fn"]](torch.from_numpy(worker.case_spec(case)),
                                     **worker.call_kwargs(case)).numpy()
         np.testing.assert_allclose(out, whole, rtol=0, atol=0 if kernel else 1e-10)
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_batched_gradients_match_unsharded_calls(batch4, name):
+    case = worker.BATCH_JOB[name]
+    out, ref = batch4[name], worker.run_case(PORT_FN[case["fn"]], case)
+    assert out.shape == ref.shape == worker.case_spec(case).shape
+    assert np.isfinite(out).all() and np.abs(ref).max() > 0
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("name", worker.MEL_FNS)
@@ -192,12 +209,3 @@ def test_loss_psum_axes_needs_a_bound_mesh():
     torch.testing.assert_close(ours[0], st.griffin_lim(spec, **kw), rtol=0, atol=0)
     with collective.bound(mesh), pytest.raises(ValueError, match="unknown mesh axis"):
         trunner.stop_loss_fn(("model",))
-
-
-@pytest.mark.parametrize("fn", ["griffin_lim_seq", "admm_seq"])
-def test_seq_rejects_an_input_that_requires_grad(fn):
-    from specinv_tpu_torch import parallel
-
-    spec = torch.from_numpy(worker.stft_mag(worker.signal(8192), 256)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="gradients"):
-        getattr(parallel, fn)(spec, make_mesh(device="cpu"), max_iter=2)

@@ -15,6 +15,19 @@
   cases of ``tests/test_sharding.py``; at world size 1 in-process against a
   1-device JAX mesh.  Each is also held against the port's unsharded call.
 
+Gradients (the ``grad`` cases of the spawn jobs, and in-process at world
+size 1): each rank's d mean((y - x)^2) / d spec, held against ``jax.grad``
+of JAX's seq function on a mesh of the same shape, and every rank's equal
+(``run_job``).  The float64 ``'fft'`` gradients at the cross-package band,
+1e-9 of the max (a complex input's: against the conjugate of JAX's, its
+convention).  The float32 cases at 5e-2 of the max, JAX's band between its
+own ``'pallas4'`` and ``'fft'`` gradients (``test_sharding.py``): across the
+packages the float32 SPSI seed's phase sums round differently, and the
+gradient carries that (1.2e-2 of the max for GL, 4.0e-2 for ADMM, the
+``'fft'`` path as far as ``'kernel'``).  The port's ``'kernel'`` against
+its ``'fft'`` gradient at that band too, and ``remat=True`` against
+``remat=False`` at JAX's 1e-7 of the max.
+
 Tolerances (:func:`_bands`).  Against the port's unsharded call, the JAX
 package's own bands for its seq path: atol 1e-10 in float64 (1e-8 for ADMM
 with early stopping), 1e-4 of the max for float32 and 5e-3 for the kernel.
@@ -136,14 +149,26 @@ def test_raw_dispatch_geometry_and_normalized_form():
 # --- the sequence-parallel entry points --------------------------------------
 
 
+GRAD_F32_BAND = 5e-2
+REMAT_BAND = 1e-7
+
+
 def _jax_seq(case, world):
+    """JAX's seq path on the case: the waveform, or for a ``grad`` case the
+    gradient in torch's convention."""
     data, seq = case.get("mesh", (1, world))
     mesh = jmesh.make_mesh(data=data, seq=seq)
     fn = jseq.admm_seq if case["algo"] == "admm" else jseq.griffin_lim_seq
     kw = worker.call_kwargs(case)
     if kw.get("backend") == "kernel":
         kw["backend"] = "pallas4"
-    return np.asarray(fn(worker.case_spec(case), mesh, **kw))
+    spec = worker.case_spec(case)
+    if not case.get("grad"):
+        return np.asarray(fn(spec, mesh, **kw))
+    x = worker.case_signal(case)
+    grad = jax.grad(lambda s: worker.grad_loss(fn(s, mesh, **kw), x))(jnp.asarray(spec))
+    # for a complex input jax.grad gives the conjugate of torch's .grad
+    return np.conj(np.asarray(grad))
 
 
 def _unsharded(case):
@@ -183,6 +208,10 @@ def check_case(results, name, case, world):
     ref = _jax_seq(case, world)
     out = results[name]
     assert out.shape == ref.shape and out.dtype == ref.dtype
+    if case.get("grad"):
+        band = GRAD_F32_BAND if case.get("f32") else 1e-9
+        np.testing.assert_allclose(out, ref, rtol=0, atol=band * np.abs(ref).max())
+        return
     cross, own = _bands(name, case, ref)
     np.testing.assert_allclose(out, ref, rtol=0, atol=cross)
     np.testing.assert_allclose(out, _unsharded(case), rtol=0, atol=own)
@@ -198,6 +227,29 @@ def test_seq_two_ranks_match_jax(seq2, name):
     check_case(seq2, name, worker.SEQ_JOBS[2][name], 2)
 
 
+def check_close(out, ref, band):
+    np.testing.assert_allclose(out, ref, rtol=0, atol=band * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("algo", ["gl", "admm"])
+def test_seq_kernel_gradients_match_fft(seq2, algo):
+    """The raw dispatch's gradient (its plain twin replayed) against the
+    fft path's, at test_sharding.py's geometry and band: the twin's
+    sqrt(re^2 + im^2 + 1e-30) magnitude against abs (read 4.4e-6 / 1.3e-5)."""
+    assert np.isfinite(seq2[f"{algo}_grad_kernel"]).all()
+    check_close(seq2[f"{algo}_grad_kernel"], seq2[f"{algo}_grad_fft"], GRAD_F32_BAND)
+
+
+@pytest.mark.parametrize("algo,backend", [
+    ("gl", "fft"), ("gl", "kernel"), ("admm", "fft"), ("admm", "kernel"),
+])
+def test_seq_remat_gradients_match_two_ranks(seq2, algo, backend):
+    """remat=True recomputes each iteration, exchanges included, in the
+    backward pass: the same gradient as remat=False (read bit for bit)."""
+    check_close(seq2[f"{algo}_grad_{backend}_remat"], seq2[f"{algo}_grad_{backend}"],
+                REMAT_BAND)
+
+
 WORLD1 = {
     "gl_hann": dict(algo="gl", stft=dict(hann=True), call=dict(max_iter=8)),
     "admm_circular": dict(algo="admm", speech=True, stft=dict(pad_mode="circular"),
@@ -205,18 +257,35 @@ WORLD1 = {
     "gl_early_stop": dict(algo="gl", call=dict(max_iter=30, tol=1.0, eva_iter=5)),
     "gl_kernel": dict(algo="gl", f32=True, seeded=True, stft=dict(hop_length=128),
                       call=dict(max_iter=6, backend="kernel")),
+    "gl_grad": worker.SEQ_JOBS[2]["gl_grad"],
+    "admm_grad": worker.SEQ_JOBS[2]["admm_grad"],
+    "gl_grad_tol": worker.SEQ_JOBS[2]["gl_grad_tol"],
 }
+
+
+def _world_one(case):
+    mesh = make_mesh(device="cpu")
+    assert mesh.shape == {"data": 1, "seq": 1}
+    return worker.run_case(admm_seq if case["algo"] == "admm" else griffin_lim_seq, case,
+                           mesh=mesh)
 
 
 @pytest.mark.parametrize("name", list(WORLD1))
 def test_seq_world_one_matches_jax(name):
     """No process group: make_mesh() is the 1x1 mesh, run in-process."""
-    case = WORLD1[name]
-    mesh = make_mesh(device="cpu")
-    assert mesh.shape == {"data": 1, "seq": 1}
-    fn = admm_seq if case["algo"] == "admm" else griffin_lim_seq
-    out = fn(torch.from_numpy(worker.case_spec(case)), mesh, **worker.call_kwargs(case))
-    check_case({name: out.numpy()}, name, case, 1)
+    check_case({name: _world_one(WORLD1[name])}, name, WORLD1[name], 1)
+
+
+@pytest.mark.parametrize("algo,backend", [("gl", "fft"), ("gl", "kernel"), ("admm", "kernel")])
+def test_seq_remat_gradients_match_world_one(algo, backend):
+    """test_sharding.py's remat cases at world size 1: 4 iterations, float32."""
+    case = dict(worker.SEQ_JOBS[2][f"{algo}_grad_{backend}"])
+    case["call"] = dict(case["call"], max_iter=4)
+    ref = _world_one(case)
+    case["call"] = dict(case["call"], remat=True)
+    out = _world_one(case)
+    assert np.isfinite(out).all()
+    check_close(out, ref, REMAT_BAND)
 
 
 @pytest.mark.parametrize("n_fft,hop,T,n", [

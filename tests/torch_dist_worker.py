@@ -10,6 +10,7 @@ rank's results must be equal.  The inputs are made from seeds with numpy
 """
 from __future__ import annotations
 
+import datetime
 import multiprocessing as mp
 from pathlib import Path
 
@@ -17,6 +18,9 @@ import numpy as np
 import torch
 
 JOIN_TIMEOUT_S = 300
+# a collective waits this long for its peers, so that a deadlock (a backward
+# pass whose exchanges do not pair up) fails the job instead of hanging it
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=120)
 
 
 def signal(n, batch=None, seed=0, dtype=np.float64):
@@ -38,6 +42,18 @@ def hann(n_fft):
     return torch.hann_window(n_fft, dtype=torch.float64).numpy()
 
 
+def case_signal(case):
+    """The clip(s) of a case (numpy): white noise, or speech-like clips."""
+    n, batch, seed = case.get("n", 22050), case.get("batch"), case.get("seed", 0)
+    dtype = np.float32 if case.get("f32") else np.float64
+    if case.get("speech"):
+        from specinv_tpu_torch.utils.corpus import make_speech_like
+
+        clips = [make_speech_like(n, seed=seed + b) for b in range(batch or 1)]
+        return np.stack(clips).astype(dtype) if batch else clips[0].astype(dtype)
+    return signal(n, batch, seed, dtype)
+
+
 def case_spec(case):
     """The spectrogram of a case: its clip(s) through ``torch.stft``.
 
@@ -47,15 +63,8 @@ def case_spec(case):
     packages start from the same complex seed (in float32 the SPSI seed's
     cumulative phase sums round differently in XLA and torch).
     """
-    n, batch, seed = case.get("n", 22050), case.get("batch"), case.get("seed", 0)
     dtype = np.float32 if case.get("f32") else np.float64
-    if case.get("speech"):
-        from specinv_tpu_torch.utils.corpus import make_speech_like
-
-        clips = [make_speech_like(n, seed=seed + b) for b in range(batch or 1)]
-        x = np.stack(clips).astype(dtype) if batch else clips[0].astype(dtype)
-    else:
-        x = signal(n, batch, seed, dtype)
+    x = case_signal(case)
     if case.get("scale_rows"):  # heterogeneous clips: per-clip losses differ
         rng = np.random.default_rng(7)
         x = x * (1.0 + 9.0 * rng.random((x.shape[0], 1)))
@@ -72,6 +81,13 @@ def case_spec(case):
     return spec
 
 
+def grad_loss(y, x):
+    """A gradient case's loss: the mean square of the waveform ``y`` against
+    the clip ``x`` over their common length (``test_sharding.py``'s)."""
+    n = min(y.shape[-1], x.shape[-1])
+    return ((y[..., :n] - x[..., :n]) ** 2).mean()
+
+
 def call_kwargs(case):
     """The entry point's keyword arguments: the case's, plus its STFT ones."""
     kw = dict(case.get("call", {}))
@@ -83,7 +99,11 @@ def call_kwargs(case):
 
 
 # world size -> {case: ...}.  Seq cases: algo 'gl' / 'admm', mesh (data,
-# seq); batch cases: fn 'gl' / 'admm' / 'rtisi', the wrapper's options.
+# seq); batch cases: fn 'gl' / 'admm' / 'rtisi', the wrapper's options.  A
+# ``grad`` case saves d grad_loss / d spec on each rank in place of the
+# waveform.  GRAD: tests/test_sharding.py's gradient geometry (n_fft 256,
+# hop 128, 8192 samples).
+GRAD = dict(grad=True, n=8192, n_fft=256, stft=dict(hop_length=128))
 SEQ_JOBS = {
     2: {
         "gl_center_hann": dict(algo="gl", stft=dict(hann=True), call=dict(max_iter=12)),
@@ -103,6 +123,14 @@ SEQ_JOBS = {
                                      stft=dict(hop_length=128),
                                      call=dict(max_iter=40, tol=1.0, eva_iter=5,
                                                backend="kernel")),
+        "gl_grad": dict(algo="gl", **GRAD, call=dict(max_iter=3)),
+        "admm_grad": dict(algo="admm", speech=True, **GRAD, call=dict(max_iter=3)),
+        "gl_grad_tol": dict(algo="gl", **GRAD, call=dict(max_iter=12, tol=1.0, eva_iter=2)),
+        # float32, as test_sharding.py's 'pallas4' against 'fft' and remat
+        # cases: the kernel against the fft path, remat against none
+        **{f"{algo}_grad_{backend}{'_remat' * remat}": dict(
+            algo=algo, f32=True, **GRAD, call=dict(max_iter=3, backend=backend, remat=remat))
+           for algo in ("gl", "admm") for backend in ("kernel", "fft") for remat in (0, 1)},
     },
     4: {
         **{f"{algo}_{pm}": dict(algo=algo, speech=algo == "admm", stft=dict(pad_mode=pm),
@@ -117,6 +145,30 @@ SEQ_JOBS = {
                                        call=dict(max_iter=40, tol=3e-2, eva_iter=5,
                                                  shard_batch_axis=True)),
         "too_many_shards": dict(algo="gl", n=2000, call=dict(max_iter=2), error=True),
+        # from a seeded complex spectrogram: from the magnitude alone both
+        # packages' float64 SPSI seeds differ by the order of their phase
+        # sums, and 3 iterations carry that to 2.3e-8 of the gradient's max
+        # for GL reflect here (the unsharded calls' too; 1.4e-11 with JAX's
+        # seed values), 8.6e-9 for ADMM constant
+        **{f"gl_grad_{pm}": dict(algo="gl", grad=True, seeded=True, stft=dict(pad_mode=pm),
+                                 call=dict(max_iter=3))
+           for pm in ("reflect", "constant", "replicate", "circular")},
+        **{f"admm_grad_{pm}": dict(algo="admm", grad=True, seeded=True, speech=True,
+                                   stft=dict(pad_mode=pm), call=dict(max_iter=3))
+           for pm in ("reflect", "constant", "replicate", "circular")},
+        # 12 frames over 4 shards of 4: the last shard holds only padding
+        # (valid_t 0), its rows inert forward and backward
+        "admm_grad_padding_shard": dict(algo="admm", grad=True, speech=True, n=1920,
+                                        stft=dict(center=False), call=dict(max_iter=3)),
+        **{f"admm_grad_padding_shard_{backend}": dict(
+            algo="admm", grad=True, f32=True, speech=True, n=1920, stft=dict(center=False),
+            call=dict(max_iter=3, backend=backend)) for backend in ("kernel", "fft")},
+        "gl_data_seq_grad": dict(algo="gl", grad=True, seeded=True, mesh=(2, 2), batch=4,
+                                 call=dict(max_iter=3, shard_batch_axis=True)),
+        "gl_data_seq_grad_kernel": dict(algo="gl", grad=True, seeded=True, f32=True,
+                                        mesh=(2, 2), batch=4,
+                                        call=dict(max_iter=3, shard_batch_axis=True,
+                                                  backend="kernel")),
     },
 }
 
@@ -148,6 +200,13 @@ BATCH_JOB = {
     "mel_to_audio": dict(fn="mel_to_audio", batch=8,
                          call=dict(hop_length=32, nnls_iter=8, max_iter=2, tol=0.0,
                                    verbose=False)),
+    "gl_grad": dict(fn="gl", batch=8, grad=True, call=dict(max_iter=4, tol=0.0, verbose=False)),
+    "admm_grad": dict(fn="admm", batch=8, speech=True, grad=True,
+                      call=dict(max_iter=4, tol=0.0, verbose=False)),
+    "rtisi_grad": dict(fn="rtisi", batch=8, n=8192, frames=12, grad=True,
+                       call=dict(look_ahead=2, max_iter=2, verbose=False)),
+    "gl_grad_uneven": dict(fn="gl", batch=6, grad=True,
+                           call=dict(max_iter=4, tol=0.0, verbose=False)),
 }
 MEL_FNS = ("lbfgs", "mel_to_audio")
 # __graft_entry__.dryrun_multichip's mel geometry (its 4-device seq axis):
@@ -198,13 +257,23 @@ def loss_inputs():
     return out, tgt, stats
 
 
+def run_case(fn, case, **kw):
+    """``fn(spec, **kw, **call)`` on the case's input: the waveform, or for
+    a ``grad`` case d grad_loss / d spec (numpy)."""
+    spec = torch.from_numpy(case_spec(case)).requires_grad_(bool(case.get("grad")))
+    y = fn(spec, **kw, **call_kwargs(case))
+    if not case.get("grad"):
+        return y.detach().numpy()
+    grad_loss(y, torch.from_numpy(case_signal(case))).backward()
+    return spec.grad.numpy()
+
+
 def _seq_case(case, device):
     from specinv_tpu_torch.parallel import admm_seq, griffin_lim_seq, make_mesh
 
     data, seq = case.get("mesh", (1, torch.distributed.get_world_size()))
     mesh = make_mesh(data=data, seq=seq, device=device)
-    fn = admm_seq if case["algo"] == "admm" else griffin_lim_seq
-    return fn(torch.from_numpy(case_spec(case)), mesh, **call_kwargs(case)).numpy()
+    return run_case(admm_seq if case["algo"] == "admm" else griffin_lim_seq, case, mesh=mesh)
 
 
 def _batch_case(case, mesh):
@@ -216,7 +285,7 @@ def _batch_case(case, mesh):
     fn = {"gl": st.griffin_lim, "admm": st.ADMM, "rtisi": st.RTISI_LA}[case["fn"]]
     wrapped = batched(fn, mesh, gspmd=case.get("gspmd", False),
                       global_stop=case.get("global_stop", False))
-    return wrapped(torch.from_numpy(case_spec(case)), **call_kwargs(case)).numpy()
+    return run_case(wrapped, case)
 
 
 def _mesh_facts(device):
@@ -246,7 +315,8 @@ def _mesh_facts(device):
 def _worker(rank, world, store, out_dir, job):
     torch.set_num_threads(1)
     torch.distributed.init_process_group(
-        "gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=COLLECTIVE_TIMEOUT)
     try:
         results = {}
         if job == "batch":
