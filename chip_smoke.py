@@ -1454,7 +1454,7 @@ def smoke(clip_job, batch_jobs) -> None:
         check_kernel(f"admm {n_fft}/{hop} {extra or 'defaults'}, 5 it", admm_fullrun,
                      "fused_admm_run", ADMM_RHO, cfg, state, 5, admm_limits)
 
-    print(f"[3] gl_fused.cu / admm_fused.cu (direct DFT, tensor cores): 1 and 5 iterations "
+    print(f"[3] gl_fused.cu / admm_fused.cu (direct DFT: wgmma, and FFMA for 'highest'): 1 and 5 iterations "
           f"beside a float64 plain run {since()}", flush=True)
     gl_dft_err = admm_dft_err = 0.0
     dft_readings = {}
@@ -2093,6 +2093,17 @@ def smoke(clip_job, batch_jobs) -> None:
 
     dft_bounds = {tier: dft_bound(tier) for tier in ("high", "highest")}
     print(f"  direct-DFT bounds per iteration (ms): {dft_bounds}", flush=True)
+    # HIGHEST (float32 FFMA from the TMA ring) beside cuBLAS's two float32
+    # products and its bound
+    highest_yard = yard["config 1"]["highest"]
+    print("  HIGHEST at config 1, one iteration: " + "; ".join(
+        f"{name} {dft_times[(name, 'highest')][0] * 1000:.2f} us (CUDA graph), "
+        f"{dft_times[(name, 'highest')][1] * 1000:.2f} us as called"
+        for name in ("gl_fused", "admm_fused"))
+        + f"; cuBLAS's two float32 products {highest_yard['graph_ms'] * 1000:.2f} us (CUDA "
+        f"graph), {highest_yard['called_ms'] * 1000:.2f} us as called; bound "
+        f"{dft_bounds['highest'][0] * 1000:.2f} us ({dft_bounds['highest'][1]}) on {smi}",
+        flush=True)
 
     print(f"[5] the seq paths on the 10-minute clip, marginal us/iter ((t(100) - t(50)) / "
           f"50, host clock) {since()}", flush=True)
@@ -2154,6 +2165,11 @@ def smoke(clip_job, batch_jobs) -> None:
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
+    def highest(name):  # E / F at 'highest', timed as at HIGH
+        ms, called_ms, plain_ms = dft_times[(name, "highest")]
+        return {**timing(ms, plain_ms, dft_bounds["highest"]), "called_ms": called_ms,
+                "yardstick_ms": yard["config 1"]["highest"]}
+
     kernels = [
         {"name": "gl_fullrun", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fullrun.cu",
          "replaces": "specinv_tpu/ops/pallas/fullrun_lane.py:377 (algo='gl'); "
@@ -2188,20 +2204,22 @@ def smoke(clip_job, batch_jobs) -> None:
         # one iteration at config 1 in the default tier (HIGH), ms as a CUDA
         # graph (called_ms as called); launches: the 'dft' main path's (the
         # 400/160 'auto' drive launched it too); no one PyTorch call computes
-        # the iteration: yardstick_ms is cuBLAS's HIGH products, timed alike
+        # the iteration: yardstick_ms is cuBLAS's HIGH products, timed alike;
+        # "highest": the same at 'highest' beside cuBLAS's float32 products
         {"name": "gl_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/gl_fused.py:193",
          "launches": gl_dft_launches, "max_abs_err": gl_dft_err,
          **timing(dft_times[("gl_fused", "high")][0], dft_times[("gl_fused", "high")][2],
                   dft_bounds["high"]),
-         "called_ms": dft_times[("gl_fused", "high")][1], "yardstick_ms": yard["config 1"]["high"]},
+         "called_ms": dft_times[("gl_fused", "high")][1], "yardstick_ms": yard["config 1"]["high"],
+         "highest": highest("gl_fused")},
         {"name": "admm_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/admm_fused.py:41",
          "launches": admm_dft_launches, "max_abs_err": admm_dft_err,
          **timing(dft_times[("admm_fused", "high")][0], dft_times[("admm_fused", "high")][2],
                   dft_bounds["high"]),
          "called_ms": dft_times[("admm_fused", "high")][1],
-         "yardstick_ms": yard["config 1"]["high"]},
+         "yardstick_ms": yard["config 1"]["high"], "highest": highest("admm_fused")},
         # the raw dispatch of kernels A and C: one launch per iteration and
         # shard; launches: counted on the world-1 seq main path (tol 0) and
         # in the world-1 gradient phase (forward passes, and the remat

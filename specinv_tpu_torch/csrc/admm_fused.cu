@@ -1,8 +1,8 @@
-// One DR-ADMM iteration through the direct DFT on the tensor cores, for
-// Hopper (sm_90a): the frame split, the forward product with the ADMM
-// middle, the inverse product and the overlap-add (dft_iter.cuh), four
-// launches (three for 'highest').  The wrapper (ops/cuda/admm_fused.py)
-// launches one iteration per call.
+// One DR-ADMM iteration through the direct DFT, for Hopper (sm_90a): the
+// frame split, the forward product with the ADMM middle, the inverse
+// product and the overlap-add (dft_iter.cuh), four launches, the products
+// on the tensor cores or, in 'highest', as float32 FFMA.  The wrapper
+// (ops/cuda/admm_fused.py) launches one iteration per call.
 //
 // Replaces the TPU kernel specinv_tpu/ops/pallas/admm_fused.py::_kernel
 // (:41, launched at :208 by fused_admm_iteration), the iteration of
@@ -25,9 +25,9 @@
 //
 // What bounds it on an H100: the products are gl_fused.cu's (config 2 has
 // config 1's shapes: HIGH 21.7 GFLOP, 21.9 us of dense bf16; HIGHEST 108 us
-// of float32) and the middle adds about 20 FLOP per bin; the split tiers
-// are bound by the tensor cores, and the engine's wgmma products are held
-// above that by L2 (gl_fused.cu).
+// of float32) and the middle adds about 20 FLOP per bin; every tier is
+// bound by its operations, and the engine's wgmma products are held above
+// that by L2 (gl_fused.cu).
 #include <cuda_runtime.h>
 
 #include "dft_iter.cuh"
@@ -59,24 +59,24 @@ struct ADMMDftMiddle {
 extern "C" {
 
 // One iteration: x_in -> x_out (distinct buffers), y_in -> y_out (may
-// be one buffer), mag may be null.  The tables: float32 cos/sin (n, F) for
-// 'highest', fwd (2 F_pad, n_pad) and inv (n_pad, 2 F_pad) bf16 halves for
-// the split schemes (ops/cuda/_dft.py); the scratch: the frames (B, T, n),
-// the split frames (B, T, n_pad) of a split forward, and P for the inverse,
-// spec (B, T, F) for 'highest' or the split planes (B, T, 2 F_pad); a lo
-// half may be null where the schemes read none.  fwd_scheme and inv_scheme
-// are dft_iter.cuh Scheme codes.
+// be one buffer), mag may be null.  The tables (ops/cuda/_dft.py): fwd
+// (2 F_pad, n_pad) and inv (n_pad, 2 F_pad), in float32 for 'highest' and
+// as bf16 halves for the split schemes; the scratch: the frames (B, T, n),
+// the forward's frames (B, T, n_pad), float32 for a 'highest' forward or
+// split into bf16 halves, and P for the inverse (B, T, 2 F_pad), float32
+// for a 'highest' inverse or split; a buffer may be null where the schemes
+// read none.  fwd_scheme and inv_scheme are dft_iter.cuh Scheme codes.
 int specinv_admm_dft_iteration(
     const float* x_in, float* x_out, const float2* y_in, float2* y_out,
-    const float* target, const float* window, const float* wts, const float* cos_f,
-    const float* sin_f, const __nv_bfloat16* fwd_hi, const __nv_bfloat16* fwd_lo,
+    const float* target, const float* window, const float* wts, const float* fwd_f32,
+    const float* inv_f32, const __nv_bfloat16* fwd_hi, const __nv_bfloat16* fwd_lo,
     const __nv_bfloat16* inv_hi, const __nv_bfloat16* inv_lo, const float* inv_env,
-    float2* spec, float* frames, float* mag, __nv_bfloat16* frame_hi,
-    __nv_bfloat16* frame_lo, __nv_bfloat16* p_hi, __nv_bfloat16* p_lo, int B, int T, int n,
-    int hop, int n_bins, int lp, int p_amt, int e, int pad_mode, int fwd_scheme,
+    float* frames, float* mag, float* frame_f32, __nv_bfloat16* frame_hi,
+    __nv_bfloat16* frame_lo, float* p_f32, __nv_bfloat16* p_hi, __nv_bfloat16* p_lo, int B,
+    int T, int n, int hop, int n_bins, int lp, int p_amt, int e, int pad_mode, int fwd_scheme,
     int inv_scheme, float rho, int valid_t, cudaStream_t stream) {
-  const specinv::Buffers buf{cos_f, sin_f, fwd_hi, fwd_lo, inv_hi, inv_lo, frame_hi, frame_lo,
-                             {spec, p_hi, p_lo}, frames};
+  const specinv::Buffers buf{fwd_f32, inv_f32, fwd_hi, fwd_lo, inv_hi, inv_lo, frame_f32,
+                             frame_hi, frame_lo, {p_f32, p_hi, p_lo}, frames};
   return specinv::run_dft_iteration(x_in, x_out, y_in, y_out, target, window, wts, buf,
                                     inv_env, mag, B, T, n, hop, n_bins, lp, p_amt, e, pad_mode,
                                     fwd_scheme, inv_scheme, valid_t, ADMMDftMiddle{rho}, stream);

@@ -16,11 +16,11 @@
 //   kHigh      ah*bh + ah*bl + al*bh        three passes (JAX HIGH)
 //   kBf16x2    ah*bh + ah*bl                two passes, table low bits
 //   kBf16x2t   ah*bh + al*bh                two passes, data low bits
-//   kHighest   float32 on the CUDA cores
+//   kHighest   a*b                          float32 FFMA on the CUDA cores
 //
 // with hi = bf16_rn(x), lo = bf16_rn(x - hi) (JAX's astype rounding).
 //
-// The bf16 schemes: one product with complex parts interleaved.  Both
+// Every scheme: one product with complex parts interleaved.  Both
 // products are one real matrix product against M2 (n, 2F), M2[k, 2f] =
 // C[k, f] and M2[k, 2f + 1] = -Sn[k, f] (negation is exact):
 //
@@ -29,40 +29,56 @@
 //
 // so one output tile of the forward holds both parts of its bins, and the
 // inverse is one product of depth 2F instead of two of depth F.  The wrapper
-// caches M2 in the layouts the tensor cores read (ops/cuda/_dft.py
+// caches M2 in the layouts the ring reads (ops/cuda/_dft.py
 // interleaved_tables): the forward's B operand is M2^T (2F_pad, n_pad), the
-// inverse's M2 (n_pad, 2F_pad), both split into bf16 hi/lo planes, with F_pad
-// = F rounded up to 32 and n_pad = n rounded up to 64 and zeros in the pad,
-// so every row is a whole number of 128-byte lines.  The data operands are
-// split once per iteration, not once per tile: frame_split_kernel writes the
-// framed, windowed signal as bf16 hi/lo planes (B, T, n_pad) (a tensor-map
-// copy cannot frame an arbitrary hop: t*hop*4 bytes is 16-byte aligned only
-// when 4 | hop), and the forward's epilogue writes P as hi/lo planes (B, T,
-// 2F_pad) with its own zero padding.  The splits are the ones split_bf16
-// makes of the float32 values, so the schemes compute the same function.
+// inverse's M2 (n_pad, 2F_pad), each in float32 (kHighest) and split into
+// bf16 hi/lo planes, with F_pad = F rounded up to 32 and n_pad = n rounded up
+// to 64 and zeros in the pad, so every row is a whole number of 128-byte
+// lines.  The data operands are written once per iteration, not once per
+// tile: frame_split_kernel writes the framed, windowed signal as float32
+// (B, T, n_pad) or as bf16 hi/lo planes (a tensor-map copy cannot frame an
+// arbitrary hop: t*hop*4 bytes is 16-byte aligned only when 4 | hop), and
+// the forward's epilogue writes P as float32 or hi/lo planes (B, T, 2F_pad)
+// with its own zero padding.  The splits are the ones split_bf16 makes of
+// the float32 values, so the schemes compute the same function.
 //
-// split_gemm_kernel computes a 64-row x 128-column output tile of one clip:
-// a producer warp keeps a ring of kStages shared-memory stages filled by the
-// Tensor Memory Accelerator (one 64 x 64 tile of each data half and one 128
-// x 64 tile of each table half per stage, 128-byte swizzled, out-of-bounds
-// rows zero-filled, completion on an mbarrier per stage), and two consumer
-// warpgroups, each owning 64 of the 128 columns, issue wgmma.mma_async
-// m64n64k16 (bf16 in, float32 accumulate) from the stage's tiles, every pass
-// of the scheme on the same stage into one accumulator started from zero.
-// Once a stage's products are done, a warpgroup adds them into float32 sums
-// in registers, rounded to nearest, and releases the stage (one arrival per
-// consumer warp on its empty barrier); the two warpgroups of an SM take
-// turns on the tensor cores.  Summing per 64-deep stage keeps the result as
-// close to float64 as the plain version's: the tensor cores' own float32
-// accumulation over the whole contraction of 2048 lay about 24x farther
-// (scripts/torch_dft_variants.py).  The epilogue gets the sums through shared memory as
-// pairs of neighbouring columns, a warp on 32 consecutive pairs of one row:
-// in the forward the (re, im) of 32 bins.
+// split_gemm_kernel computes a 64-row x 128-column output tile of one clip: a
+// producer warp keeps a ring of kStages shared-memory stages filled by the
+// Tensor Memory Accelerator (one 64 x 64 tile of each data half and one 128 x
+// 64 tile of each table half per stage, 128-byte swizzled, out-of-bounds rows
+// zero-filled, completion on an mbarrier per stage).  In a bf16 scheme two
+// consumer warpgroups, each owning 64 of the 128 columns, issue wgmma.mma_async
+// m64n64k16 (bf16 in, float32 accumulate) from the stage's tiles, every pass of
+// the scheme on the same stage into one accumulator started from zero.  Once a
+// stage's products are done, a warpgroup adds them into float32 sums in
+// registers, rounded to nearest, and releases the stage (one arrival per
+// consumer warp on its empty barrier); the two warpgroups of an SM take turns
+// on the tensor cores.  Summing per 64-deep stage keeps the result as close to
+// float64 as the plain version's: the tensor cores' own float32 accumulation
+// over the whole contraction of 2048 lay about 24x farther
+// (scripts/torch_dft_variants.py).  The epilogue gets the sums through shared
+// memory as pairs of neighbouring columns, a warp on 32 consecutive pairs of
+// one row: in the forward the (re, im) of 32 bins.
 //
-// kHighest keeps the float32 products on the CUDA cores (64 x 64 tiles, 8
-// warps, 4 x 4 outputs a thread, tables read as float32 (n, F)): TF32 would
-// not compute its function.  Its forward writes P in whatever form the
-// inverse's scheme reads.
+// kHighest reads the same ring with float32 tiles (a stage holds 64 deep as
+// two 32-float boxes of each operand, the bytes of a bf16 stage) and keeps
+// the products exact float32 FFMA on the CUDA cores: TF32 or a bf16 split
+// would not compute its function.  Its consumers take more registers than
+// the 168 a thread of nine warps gets, so its producer is a whole warpgroup
+// that gives its registers to them (setmaxnreg).  A thread owns 8 rows x
+// kFfmaCols columns and reads each operand as 16 bytes along k (four
+// k-steps per load, as the swizzle lays them out, no bank conflict): 16
+// loads per 256 FFMA, against the CUDA-core kernel's 12 or 16 per 32 before
+// it.  Four warps cover the 64 x 128 tile at 8 x 8, so the eight consumer
+// warps are two groups that split each stage's depth, group g reading box
+// g; their sums meet through shared memory in a fixed order at the end (the
+// sum of group 0, plus group 1's).  Each box's 32-deep FMA chain starts from
+// its first product and is added into the group's float32 sums, as the bf16
+// schemes' stages are.  On an H100 what holds it at about two thirds of the
+// FP32 rate is the FFMA stream itself: a ring that is never refilled, or
+// loads cut to one chunk's, run no faster, and 8 x 4 outputs a thread runs
+// slower (scripts/torch_dft_variants.py).  The forward writes P in whatever form
+// the inverse's scheme reads, so any (forward, inverse) pair of schemes runs.
 //
 // A Middle is a functor with
 //   __device__ float2 operator()(float2 s, float2& state, float tgt, float w,
@@ -88,15 +104,17 @@ namespace {
 // The order of ops/dft.py SCHEMES.
 enum Scheme { kDefault = 0, kHigh = 1, kHighest = 2, kBf16x2 = 3, kBf16x2t = 4 };
 
+using bf16 = __nv_bfloat16;
+
 template <int S>
 struct SchemeTraits {
   static constexpr bool kBLo = S == kHigh || S == kBf16x2;   // the ah*bl pass
   static constexpr bool kALo = S == kHigh || S == kBf16x2t;  // the al*bh pass
+  static constexpr bool kF32 = S == kHighest;                // float32 operands
+  using Elem = std::conditional_t<kF32, float, bf16>;        // an operand's element
 };
 
 inline bool data_lo(int s) { return s == kHigh || s == kBf16x2t; }
-
-using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // Hopper primitives: shared-memory addresses, mbarriers, TMA, wgmma.
@@ -200,17 +218,25 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
 
 constexpr int kTileM = 64;                          // rows (frames) per tile
 constexpr int kTileN = 128;                         // columns per tile
-constexpr int kTileK = 64;                          // depth per stage: one 128-byte row
+constexpr int kTileK = 64;                          // depth per stage: one 128-byte bf16 row
+constexpr int kBoxK = 32;                           // float32 depth of one 128-byte row
 constexpr int kConsumers = kTileN / 64;             // warpgroups, 64 columns each
 constexpr int kGemmThreads = 128 * kConsumers + 32;  // + the producer warp
+// kHighest's: a whole producer warpgroup, so that setmaxnreg can move its
+// registers to the consumers (registers are dealt per warpgroup)
+constexpr int kFfmaThreads = 128 * kConsumers + 128;
+constexpr int kProducerRegs = 40, kFfmaRegs = 232;
+static_assert(kProducerRegs * 128 + kFfmaRegs * 128 * kConsumers <= 65536, "one CTA per SM");
 constexpr int kStages = 4;
-constexpr int kATile = kTileM * kTileK * 2;  // bytes of one data half's tile
-constexpr int kBTile = kTileN * kTileK * 2;  // bytes of one table half's tile
+constexpr int kATile = kTileM * kTileK * 2;  // bytes of one data half's tile (one float32 box)
+constexpr int kBTile = kTileN * kTileK * 2;  // bytes of one table half's tile (one float32 box)
 constexpr int kStageBytes = 2 * kATile + 2 * kBTile;
 constexpr int kGemmSmem = kStages * kStageBytes + 1024;  // + alignment of the ring
 constexpr int kLdTile = kTileN + 4;  // float32 result tile of the epilogue, in the ring
 static_assert(kGemmSmem <= 227 * 1024, "the ring must fit in shared memory");
 static_assert(kTileM * kLdTile * 4 <= kStages * kStageBytes, "the result tile fits the ring");
+static_assert(kATile == kTileM * kBoxK * 4 && kBTile == kTileN * kBoxK * 4,
+              "a float32 stage is two boxes of each operand in a bf16 stage's place");
 
 // Waits for a stage and issues its products into acc, every pass of the
 // scheme, acc started from zero: a 64 x 64 data tile (hi at stage, lo after
@@ -235,16 +261,133 @@ __device__ __forceinline__ void issue_stage(float (&acc)[32], uint32_t stage, ui
   wgmma_commit();
 }
 
+// kHighest's thread tile, 8 rows x kFfmaCols columns; kFfmaWarps warps
+// cover the tile and the consumer warps form kFfmaGroups groups that split
+// each stage's two 32-deep boxes.
+constexpr int kFfmaCols = 8;
+constexpr int kFfmaOut = 8 * kFfmaCols;
+constexpr int kFfmaWarps = 2 * (kTileN / 8) / kFfmaCols;
+constexpr int kFfmaGroups = 4 * kConsumers / kFfmaWarps;
+static_assert(kFfmaGroups == 1 || kFfmaGroups == 2, "the groups split a stage's two boxes");
+
+// A chunk's 16-byte table reads (k = 4c .. 4c + 3) of this thread's
+// kFfmaCols columns: b points at the thread's first row of the table box,
+// its columns tc + 8 j.  Chunk c of row r lies at 16 (c ^ (r % 8)) in its
+// 128-byte line (the 128-byte swizzle), so a warp's reads hit 8 distinct
+// bank groups.
+__device__ __forceinline__ void load_table_chunk(float4 (&bv)[kFfmaCols], const unsigned char* b,
+                                                 int c, int tc) {
+#pragma unroll
+  for (int j = 0; j < kFfmaCols; ++j) {
+    bv[j] = *reinterpret_cast<const float4*>(b + j * 1024 + ((c ^ tc) << 4));
+  }
+}
+
+// One chunk of a box's products of this thread's 8 x kFfmaCols outputs into
+// acc, against the table values bv; the first product of the box's FMA
+// chain is a multiply when kFirst.  Lane = 8 tr + tc takes rows tr + 4 i of
+// its warp's block; a points at the thread's first row of the data box,
+// whose reads hit 4 distinct bank groups.
+template <bool kFirst>
+__device__ __forceinline__ void ffma_chunk(float (&acc)[kFfmaOut], const unsigned char* a,
+                                           const float4 (&bv)[kFfmaCols], int c, int tr) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 av =
+        *reinterpret_cast<const float4*>(a + i * 512 + ((c ^ (tr + 4 * (i & 1))) << 4));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float x = q == 0 ? av.x : q == 1 ? av.y : q == 2 ? av.z : av.w;
+#pragma unroll
+      for (int j = 0; j < kFfmaCols; ++j) {
+        const float y = q == 0 ? bv[j].x : q == 1 ? bv[j].y : q == 2 ? bv[j].z : bv[j].w;
+        float& d = acc[i * kFfmaCols + j];
+        d = kFirst && q == 0 ? __fmul_rn(x, y) : __fmaf_rn(x, y, d);
+      }
+    }
+  }
+}
+
+// A 32-deep box's products into acc (its FMA chain, started from its first
+// product when kFirst).  The chunks after the first run as a loop: unrolled
+// they ran slower (scripts/torch_dft_variants.py).
+template <bool kFirst>
+__device__ __forceinline__ void ffma_box(float (&acc)[kFfmaOut], const unsigned char* a,
+                                         const unsigned char* b, int tr, int tc) {
+  float4 bv[kFfmaCols];
+  load_table_chunk(bv, b, 0, tc);
+  ffma_chunk<kFirst>(acc, a, bv, 0, tr);
+#pragma unroll 1
+  for (int c = 1; c < kBoxK / 4; ++c) {
+    load_table_chunk(bv, b, c, tc);
+    ffma_chunk<false>(acc, a, bv, c, tr);
+  }
+}
+
+// kHighest's consumers: the whole contraction of the tile from the ring
+// (stage s at ring + s kStageBytes, data boxes first), the groups' sums
+// added in a fixed order, the result left in tile (64 x kLdTile floats over
+// the spent ring).  A stage is released once every lane of a warp has read
+// its box.
+__device__ __forceinline__ void ffma_products(const unsigned char* ring, uint64_t* full,
+                                              uint64_t* empty, int k_tiles, float* tile) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / kFfmaWarps, wq = warp % kFfmaWarps;
+  const int row0 = (wq / (kFfmaWarps / 2)) * 32 + lane / 8;
+  const int col0 = (wq % (kFfmaWarps / 2)) * (8 * kFfmaCols) + lane % 8;
+  const int tr = lane / 8, tc = lane % 8;
+  float sum[kFfmaOut], acc[kFfmaOut];
+#pragma unroll
+  for (int i = 0; i < kFfmaOut; ++i) sum[i] = 0.0f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(smem_u32(&full[s]), (kt / kStages) & 1);
+    const unsigned char* stage = ring + s * kStageBytes;
+#pragma unroll
+    for (int q = 0; q < 2 / kFfmaGroups; ++q) {
+      const int h = grp + q * kFfmaGroups;
+      const unsigned char* a = stage + h * kATile + row0 * 128;
+      const unsigned char* b = stage + 2 * kATile + h * kBTile + col0 * 128;
+      if (q == 0) {
+        ffma_box<true>(acc, a, b, tr, tc);
+      } else {
+        ffma_box<false>(acc, a, b, tr, tc);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+#pragma unroll
+    for (int i = 0; i < kFfmaOut; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+  }
+  // the last group's sums first, then each group before it adds its own
+#pragma unroll
+  for (int g = kFfmaGroups - 1; g >= 0; --g) {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+    if (grp == g) {
+#pragma unroll
+      for (int i = 0; i < kFfmaOut; ++i) {
+        float& t = tile[(row0 + 4 * (i / kFfmaCols)) * kLdTile + col0 + 8 * (i % kFfmaCols)];
+        t = g == kFfmaGroups - 1 ? sum[i] : __fadd_rn(sum[i], t);
+      }
+    }
+  }
+}
+
 // C (rows of clip blockIdx.z, columns) = A (B, rows, K) @ B^T (columns, K),
-// both operands K-major bf16 halves behind tensor maps, in the scheme S;
-// the epilogue gets each thread's pairs of neighbouring columns.  rows
-// masks the tile's last row; k_tiles = K / kTileK.
+// both operands K-major behind tensor maps (bf16 halves, or float32 for
+// kHighest, whose lo maps are its hi ones), in the scheme S; the epilogue
+// gets each thread's pairs of neighbouring columns.  rows masks the tile's
+// last row; k_tiles = K / kTileK.
 template <int S, class Epilogue>
-__global__ void __launch_bounds__(kGemmThreads, 1) split_gemm_kernel(
+__global__ void __launch_bounds__(SchemeTraits<S>::kF32 ? kFfmaThreads : kGemmThreads, 1)
+    split_gemm_kernel(
     const __grid_constant__ CUtensorMap a_hi, const __grid_constant__ CUtensorMap a_lo,
     const __grid_constant__ CUtensorMap b_hi, const __grid_constant__ CUtensorMap b_lo,
     int rows, int k_tiles, const Epilogue epi) {
-  constexpr bool kALo = SchemeTraits<S>::kALo, kBLo = SchemeTraits<S>::kBLo;
+  constexpr bool kF32 = SchemeTraits<S>::kF32;
+  // the second tile of each operand in a stage: the lo half, or for
+  // float32 the stage's second 32-deep box
+  constexpr bool kALo = SchemeTraits<S>::kALo || kF32, kBLo = SchemeTraits<S>::kBLo || kF32;
   extern __shared__ unsigned char gemm_smem[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t ring = (smem_u32(gemm_smem) + 1023u) & ~1023u;
@@ -259,56 +402,62 @@ __global__ void __launch_bounds__(kGemmThreads, 1) split_gemm_kernel(
   }
   __syncthreads();
 
-  if (warp == 4 * kConsumers) {  // the producer
-    if (lane == 0) {
+  if (warp >= 4 * kConsumers) {  // the producer
+    if constexpr (kF32) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
       constexpr uint32_t kBytes = kATile * (kALo ? 2 : 1) + kBTile * (kBLo ? 2 : 1);
       for (int kt = 0; kt < k_tiles; ++kt) {
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(smem_u32(&empty[s]), ((kt / kStages) - 1) & 1);
         const uint32_t stage = ring + s * kStageBytes, bar = smem_u32(&full[s]);
+        const int k0 = kt * kTileK, k1 = kF32 ? k0 + kBoxK : k0;
         mbar_expect_tx(bar, kBytes);
-        tma_load_3d(stage, &a_hi, bar, kt * kTileK, m0, b);
-        if constexpr (kALo) tma_load_3d(stage + kATile, &a_lo, bar, kt * kTileK, m0, b);
-        tma_load_2d(stage + 2 * kATile, &b_hi, bar, kt * kTileK, n0);
-        if constexpr (kBLo) tma_load_2d(stage + 2 * kATile + kBTile, &b_lo, bar, kt * kTileK, n0);
+        tma_load_3d(stage, &a_hi, bar, k0, m0, b);
+        if constexpr (kALo) tma_load_3d(stage + kATile, &a_lo, bar, k1, m0, b);
+        tma_load_2d(stage + 2 * kATile, &b_hi, bar, k0, n0);
+        if constexpr (kBLo) tma_load_2d(stage + 2 * kATile + kBTile, &b_lo, bar, k1, n0);
       }
     }
     return;
   }
 
-  // A consumer warpgroup: all 64 rows, columns [64 wg, 64 wg + 64) of the
-  // tile.  Each stage's products start from zero and are added into the
-  // float32 sums once they are done; then the stage is released.  While one
-  // warpgroup waits and adds, the other's products run.
-  const int wg = warp / 4;
-  const uint32_t b_off = 2 * kATile + wg * (kBTile / kConsumers);
-  float sum[32], acc[32];
+  unsigned char* ring_p = gemm_smem + (ring - smem_u32(gemm_smem));
+  float* tile = reinterpret_cast<float*>(ring_p);
+  if constexpr (kF32) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFfmaRegs));
+    ffma_products(ring_p, full, empty, k_tiles, tile);
+  } else {
+    // A consumer warpgroup: all 64 rows, columns [64 wg, 64 wg + 64) of the
+    // tile.  Each stage's products start from zero and are added into the
+    // float32 sums once they are done; then the stage is released.  While
+    // one warpgroup waits and adds, the other's products run.
+    const uint32_t b_off = 2 * kATile + (warp / 4) * (kBTile / kConsumers);
+    float sum[32], acc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sum[i] = 0.0f;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % kStages;
-    issue_stage<S>(acc, ring + s * kStageBytes, b_off, smem_u32(&full[s]), (kt / kStages) & 1);
-    wgmma_wait<0>();
-    fence_acc(acc);
+    for (int i = 0; i < 32; ++i) sum[i] = 0.0f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % kStages;
+      issue_stage<S>(acc, ring + s * kStageBytes, b_off, smem_u32(&full[s]), (kt / kStages) & 1);
+      wgmma_wait<0>();
+      fence_acc(acc);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
-    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
-  }
-
-  // The sums go through shared memory (the ring is spent once both
-  // warpgroups are done with it), so that the epilogue walks the tile with
-  // neighbouring threads on neighbouring column pairs: a warp reads and
-  // writes 32 consecutive pairs of one row.  Register i of a thread holds
-  // row 16 w + lane/4 + 8 ((i/2) % 2) and column 8 (i/4) + 2 (lane % 4) +
-  // i % 2 of the warpgroup's 64 x 64 block.
-  float* tile = reinterpret_cast<float*>(gemm_smem + (ring - smem_u32(gemm_smem)));
-  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
-  const int w = warp % 4;
+      for (int i = 0; i < 32; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+    }
+    // The sums go through shared memory (the ring is spent once every
+    // consumer is done with it), so that the epilogue walks the tile with
+    // neighbouring threads on neighbouring column pairs: a warp reads and
+    // writes 32 consecutive pairs of one row.  Register i of a thread holds
+    // row 16 w + lane/4 + 8 ((i/2) % 2) and column 8 (i/4) + 2 (lane % 4) +
+    // i % 2 of the warpgroup's 64 x 64 block.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+    const int w = warp % 4, wg = warp / 4;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int r = w * 16 + lane / 4 + 8 * ((i / 2) % 2);
-    const int c = wg * 64 + 8 * (i / 4) + 2 * (lane % 4);
-    *reinterpret_cast<float2*>(tile + r * kLdTile + c) = make_float2(sum[i], sum[i + 1]);
+    for (int i = 0; i < 32; i += 2) {
+      const int r = w * 16 + lane / 4 + 8 * ((i / 2) % 2);
+      const int c = wg * 64 + 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(tile + r * kLdTile + c) = make_float2(sum[i], sum[i + 1]);
+    }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
   // thread t: pair t % 64 of rows t / 64 + 4 q, q < 16; every operand
@@ -329,13 +478,14 @@ __global__ void __launch_bounds__(kGemmThreads, 1) split_gemm_kernel(
   }
 }
 
-// The framed, windowed signal split into bf16 planes (B, T, n_pad), zeros
-// at k >= n; lo may be null.  A thread makes 8 neighbouring values of one
-// frame (one 16-byte store per plane).
+// The framed, windowed signal (B, T, n_pad), zeros at k >= n: float32 (E
+// float, lo null), or split into bf16 planes (lo may be null).  A thread
+// makes 8 neighbouring values of one frame (16-byte stores).
+template <class E>
 __global__ void frame_split_kernel(const float* __restrict__ x_pad,
-                                   const float* __restrict__ window, bf16* __restrict__ hi,
-                                   bf16* __restrict__ lo, int B, int T, int n, int n_pad,
-                                   int hop, int lp) {
+                                   const float* __restrict__ window, E* __restrict__ hi,
+                                   E* __restrict__ lo, int B, int T, int n, int n_pad, int hop,
+                                   int lp) {
   const int groups = n_pad / 8;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<size_t>(B) * T * groups) return;
@@ -343,23 +493,30 @@ __global__ void frame_split_kernel(const float* __restrict__ x_pad,
   const int k0 = static_cast<int>(i % groups) * 8;
   const int b = static_cast<int>(row / T), t = static_cast<int>(row % T);
   const float* xf = x_pad + static_cast<size_t>(b) * lp + static_cast<size_t>(t) * hop;
-  __align__(16) bf16 h[8], l[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int k = k0 + j;
-    const float v = k < n ? __fmul_rn(xf[k], window[k]) : 0.0f;
-    h[j] = __float2bfloat16_rn(v);
-    l[j] = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(h[j])));
-  }
   const size_t o = row * n_pad + k0;
-  *reinterpret_cast<uint4*>(hi + o) = *reinterpret_cast<const uint4*>(h);
-  if (lo != nullptr) *reinterpret_cast<uint4*>(lo + o) = *reinterpret_cast<const uint4*>(l);
+  __align__(16) float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = k0 + j < n ? __fmul_rn(xf[k0 + j], window[k0 + j]) : 0.0f;
+  if constexpr (std::is_same_v<E, float>) {
+    reinterpret_cast<uint4*>(hi + o)[0] = reinterpret_cast<const uint4*>(v)[0];
+    reinterpret_cast<uint4*>(hi + o)[1] = reinterpret_cast<const uint4*>(v)[1];
+  } else {
+    __align__(16) bf16 h[8], l[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      h[j] = __float2bfloat16_rn(v[j]);
+      l[j] = __float2bfloat16_rn(__fsub_rn(v[j], __bfloat162float(h[j])));
+    }
+    *reinterpret_cast<uint4*>(hi + o) = *reinterpret_cast<const uint4*>(h);
+    if (lo != nullptr) *reinterpret_cast<uint4*>(lo + o) = *reinterpret_cast<const uint4*>(l);
+  }
 }
 
-// Where the forward writes P: spec (B, T, F) complex for a float32 inverse,
-// or the interleaved bf16 planes (B, T, 2 F_pad) (lo may be null).
+// Where the forward writes P, interleaved (re, im) planes (B, T, 2 F_pad):
+// bf16 halves where hi is set (lo may be null), else float32 (for a
+// kHighest inverse).
 struct POut {
-  float2* spec;
+  float* f32;
   bf16* hi;
   bf16* lo;
 };
@@ -407,7 +564,7 @@ struct ForwardEpilogue {
     float2 st = in.state;
     const float2 out = bin(make_float2(re, im), st, idx, in.tgt, in.w, t);
     state_out[idx] = st;
-    put_p(row, c, idx, out);
+    put_p(row, c, out);
   }
 
   // mag (if requested) and the Middle on bin s at idx of frame t.  Rounded
@@ -421,9 +578,8 @@ struct ForwardEpilogue {
     return middle(s, st, tgt, w, t < valid_t);
   }
 
-  // P's bin at idx, column pair c of P's row, in the form the inverse reads.
-  __device__ __forceinline__ void put_p(size_t row, int c, size_t idx, float2 out) const {
-    if (p.spec != nullptr) p.spec[idx] = out;
+  // P's bin at column pair c of P's row, in the form the inverse reads.
+  __device__ __forceinline__ void put_p(size_t row, int c, float2 out) const {
     if (p.hi != nullptr) {
       const bf16 hr = __float2bfloat16_rn(out.x), hi_ = __float2bfloat16_rn(out.y);
       *reinterpret_cast<__nv_bfloat162*>(p.hi + row * 2 * f_pad + c) = __halves2bfloat162(hr, hi_);
@@ -432,6 +588,8 @@ struct ForwardEpilogue {
             __float2bfloat16_rn(__fsub_rn(out.x, __bfloat162float(hr))),
             __float2bfloat16_rn(__fsub_rn(out.y, __bfloat162float(hi_))));
       }
+    } else {
+      *reinterpret_cast<float2*>(p.f32 + row * 2 * f_pad + c) = out;
     }
   }
 
@@ -441,6 +599,8 @@ struct ForwardEpilogue {
       const __nv_bfloat162 z = __floats2bfloat162_rn(0.0f, 0.0f);
       *reinterpret_cast<__nv_bfloat162*>(p.hi + row * 2 * f_pad + c) = z;
       if (p.lo != nullptr) *reinterpret_cast<__nv_bfloat162*>(p.lo + row * 2 * f_pad + c) = z;
+    } else {
+      *reinterpret_cast<float2*>(p.f32 + row * 2 * f_pad + c) = float2{};
     }
   }
 };
@@ -465,184 +625,6 @@ struct InverseEpilogue {
     if (j + 1 < n) out[j + 1] = __fmul_rn(v1, w.y);
   }
 };
-
-// ---------------------------------------------------------------------------
-// HIGHEST: the float32 products on the CUDA cores, 64 x 64 output tiles.
-
-constexpr int kBM = 64;          // rows (frames) per tile
-constexpr int kBN = 64;          // columns (bins or samples) per tile
-constexpr int kBK = 32;          // contraction per shared-memory tile
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kLdO = kBN + 4;    // float32 result tile
-constexpr int kLdP = kBM + 1;    // float32 transposed tiles
-
-constexpr int kFwdSmem = 2 * kBM * kLdO * 4;  // the two result tiles, the largest use
-constexpr int kInvSmem = 4 * kBK * kLdP * 4;
-
-// Forward product of one tile: stage_re / stage_im (kBM x kLdO) get frames
-// @ C and frames @ Sn; each thread owns 4 rows x 4 columns of both.  Not
-// inlined: compiled inside the kernel, the loop's registers and schedule
-// followed the Middle's epilogue, and on an H100 the ADMM instance ran
-// slower than the GL one, and both slower than this loop on its own.
-__device__ __noinline__ void forward_f32(unsigned char* smem, const float* __restrict__ xb,
-                            const float* __restrict__ window, const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t, int t0, int f0, int T, int n,
-                            int hop, int n_bins, float* stage_re, float* stage_im) {
-  float* a = reinterpret_cast<float*>(smem);  // [kBK][kLdP], transposed
-  float* c = a + kBK * kLdP;                  // [kBK][kBN]
-  float* s = c + kBK * kBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc_re[4][4] = {}, acc_im[4][4] = {};
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, k = i % kBK, t = t0 + r, kk = k0 + k;
-      a[k * kLdP + r] = (t < T && kk < n)
-                            ? __fmul_rn(xb[static_cast<size_t>(t) * hop + kk], window[kk])
-                            : 0.0f;
-    }
-    for (int i = threadIdx.x; i < kBK * kBN; i += kThreads) {
-      const int k = i / kBN, col = i % kBN, kk = k0 + k, f = f0 + col;
-      const bool in = kk < n && f < n_bins;
-      const size_t g = static_cast<size_t>(kk) * n_bins + f;
-      c[i] = in ? cos_t[g] : 0.0f;
-      s[i] = in ? sin_t[g] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kBK; ++k) {
-      float av[4], cv[4], sv[4];
-      for (int i = 0; i < 4; ++i) av[i] = a[k * kLdP + ty * 4 + i];
-      for (int j = 0; j < 4; ++j) {
-        cv[j] = c[k * kBN + tx * 4 + j];
-        sv[j] = s[k * kBN + tx * 4 + j];
-      }
-      for (int i = 0; i < 4; ++i) {
-        for (int j = 0; j < 4; ++j) {
-          acc_re[i][j] = fmaf(av[i], cv[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(av[i], sv[j], acc_im[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i) {
-    for (int j = 0; j < 4; ++j) {
-      stage_re[(ty * 4 + i) * kLdO + tx * 4 + j] = acc_re[i][j];
-      stage_im[(ty * 4 + i) * kLdO + tx * 4 + j] = acc_im[i][j];
-    }
-  }
-}
-
-// Forward DFT of a 64-frame x 64-bin tile of clip blockIdx.z in float32,
-// then the forward epilogue on each bin (bins up to F_pad, for the planes'
-// zero padding).
-template <class Middle>
-__global__ void __launch_bounds__(kThreads) dft_forward_f32_kernel(
-    const float* __restrict__ x_pad,  // (B, lp)
-    const float* __restrict__ window, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, int n, int hop, int lp, const ForwardEpilogue<Middle> epi) {
-  __shared__ __align__(128) unsigned char smem[kFwdSmem];
-  float* stage_re = reinterpret_cast<float*>(smem);
-  float* stage_im = stage_re + kBM * kLdO;
-  const int f0 = blockIdx.x * kBN, t0 = blockIdx.y * kBM, b = blockIdx.z;
-  const int T = epi.T, n_bins = epi.n_bins, f_pad = epi.f_pad;
-  forward_f32(smem, x_pad + static_cast<size_t>(b) * lp, window, cos_t, sin_t, t0, f0, T, n, hop,
-              n_bins, stage_re, stage_im);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-    const int r = i / kBN, c = i % kBN, t = t0 + r, f = f0 + c;
-    if (t >= T || f >= f_pad) continue;
-    const size_t row = static_cast<size_t>(b) * T + t;
-    if (f >= n_bins) {
-      epi.zero_p(row, 2 * f);
-      continue;
-    }
-    const size_t idx = row * n_bins + f;
-    float2 st = epi.state_in[idx];
-    const float2 out = epi.bin(make_float2(stage_re[r * kLdO + c], -stage_im[r * kLdO + c]), st,
-                               idx, epi.target[idx], epi.wts[f], t);
-    epi.state_out[idx] = st;
-    epi.put_p(row, 2 * f, idx, out);
-  }
-}
-
-// The inverse product of one tile in float32: stage (kBM x kLdO) gets P_re
-// @ C^T - P_im @ Sn^T.
-__device__ void inverse_f32(unsigned char* smem, const float2* __restrict__ pb,
-                            const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                            int t0, int j0, int T, int n, int n_bins, float* stage) {
-  float* are = reinterpret_cast<float*>(smem);  // [kBK][kLdP], transposed
-  float* aim = are + kBK * kLdP;
-  float* c = aim + kBK * kLdP;                   // [kBK][kLdP]: (k, j) at k*kLdP + j
-  float* s = c + kBK * kLdP;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc_re[4][4] = {}, acc_im[4][4] = {};
-  for (int k0 = 0; k0 < n_bins; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, k = i % kBK, t = t0 + r, kk = k0 + k;
-      const float2 v = (t < T && kk < n_bins) ? pb[static_cast<size_t>(t) * n_bins + kk]
-                                              : make_float2(0.0f, 0.0f);
-      are[k * kLdP + r] = v.x;
-      aim[k * kLdP + r] = v.y;
-    }
-    for (int i = threadIdx.x; i < kBN * kBK; i += kThreads) {
-      const int j = i / kBK, k = i % kBK, jj = j0 + j, kk = k0 + k;
-      const bool in = jj < n && kk < n_bins;
-      const size_t g = static_cast<size_t>(jj) * n_bins + kk;
-      c[k * kLdP + j] = in ? cos_t[g] : 0.0f;
-      s[k * kLdP + j] = in ? sin_t[g] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kBK; ++k) {
-      float rv[4], iv[4], cv[4], sv[4];
-      for (int i = 0; i < 4; ++i) {
-        rv[i] = are[k * kLdP + ty * 4 + i];
-        iv[i] = aim[k * kLdP + ty * 4 + i];
-      }
-      for (int j = 0; j < 4; ++j) {
-        cv[j] = c[k * kLdP + tx * 4 + j];
-        sv[j] = s[k * kLdP + tx * 4 + j];
-      }
-      for (int i = 0; i < 4; ++i) {
-        for (int j = 0; j < 4; ++j) {
-          acc_re[i][j] = fmaf(rv[i], cv[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(iv[i], sv[j], acc_im[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i) {
-    for (int j = 0; j < 4; ++j) {
-      stage[(ty * 4 + i) * kLdO + tx * 4 + j] = __fsub_rn(acc_re[i][j], acc_im[i][j]);
-    }
-  }
-}
-
-// Inverse DFT of a 64-frame x 64-sample tile of clip blockIdx.z in
-// float32, times the window, into the frame scratch.
-__global__ void __launch_bounds__(kThreads) dft_inverse_f32_kernel(
-    const float2* __restrict__ spec,  // (B, T, F) P
-    const float* __restrict__ cos_t, const float* __restrict__ sin_t, int n_bins,
-    const InverseEpilogue epi) {
-  __shared__ __align__(128) unsigned char smem[kInvSmem];
-  float* stage = reinterpret_cast<float*>(smem);
-  const int j0 = blockIdx.x * kBN, t0 = blockIdx.y * kBM, b = blockIdx.z;
-  inverse_f32(smem, spec + static_cast<size_t>(b) * epi.T * n_bins, cos_t, sin_t, t0, j0, epi.T,
-              epi.n, n_bins, stage);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-    const int r = i / kBN, c = i % kBN, t = t0 + r, j = j0 + c;
-    if (t < epi.T && j < epi.n) {
-      epi.frames[(static_cast<size_t>(b) * epi.T + t) * epi.n + j] =
-          __fmul_rn(stage[r * kLdO + c], epi.window[j]);
-    }
-  }
-}
-
-static_assert(kBK * kLdP * 4 + 2 * kBK * kBN * 4 <= kFwdSmem, "forward_f32 tiles");
-static_assert(kBM * kLdO * 4 <= kInvSmem, "inverse result tile");
 
 // ---------------------------------------------------------------------------
 // Host side.
@@ -688,32 +670,41 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a bf16 array (planes, rows, cols), of rank 3, or of rank
-// 2 for a matrix (planes 1), read in boxes of kTileK columns x box_rows
-// rows, 128-byte swizzled; rows past the end read as zeros.
-inline bool make_map(CUtensorMap* map, int rank, const bf16* base, int planes, int rows,
-                     int cols, int box_rows) {
+// A tensor map of a bf16 or float32 array (planes, rows, cols), of rank 3,
+// or of rank 2 for a matrix (planes 1), read in boxes of one 128-byte row
+// (kTileK bf16 or kBoxK float32 columns) x box_rows rows, 128-byte
+// swizzled; rows past the end read as zeros.
+template <class E>
+inline bool make_map(CUtensorMap* map, int rank, const E* base, int planes, int rows, int cols,
+                     int box_rows) {
+  static_assert(std::is_same_v<E, bf16> || std::is_same_v<E, float>, "bf16 or float32");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr || base == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(cols) * rows * 2};
-  const cuuint32_t box[3] = {kTileK, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * sizeof(E),
+                                 static_cast<cuuint64_t>(cols) * rows * sizeof(E)};
+  const cuuint32_t box[3] = {128 / sizeof(E), static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                const_cast<bf16*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map,
+                std::is_same_v<E, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                static_cast<cuuint32_t>(rank), const_cast<E*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One split product: out[b] (rows, cols) = a[b] (rows, K) @ tab^T (cols, K)
-// with a (B, rows, K) and tab (tab_rows, K) bf16 halves (lo may be null
-// where the scheme reads none).  K is a multiple of kTileK.
+// One product in the scheme S: out[b] (rows, cols) = a[b] (rows, K) @
+// tab^T (cols, K) with a (B, rows, K) and tab (tab_rows, K) bf16 halves
+// (lo may be null where the scheme reads none), or float32 for kHighest
+// (lo null).  K is a multiple of kTileK.
 template <int S, class Epilogue>
-cudaError_t launch_split_gemm(const bf16* a_hi, const bf16* a_lo, const bf16* t_hi,
-                              const bf16* t_lo, int B, int rows, int K, int tab_rows, int cols,
-                              const Epilogue& epi, cudaStream_t stream) {
+cudaError_t launch_split_gemm(const typename SchemeTraits<S>::Elem* a_hi,
+                              const typename SchemeTraits<S>::Elem* a_lo,
+                              const typename SchemeTraits<S>::Elem* t_hi,
+                              const typename SchemeTraits<S>::Elem* t_lo, int B, int rows, int K,
+                              int tab_rows, int cols, const Epilogue& epi, cudaStream_t stream) {
   CUtensorMap m_ahi, m_alo, m_bhi, m_blo;
   const bool ok =
       make_map(&m_ahi, 3, a_hi, B, rows, K, kTileM) &&
@@ -725,23 +716,26 @@ cudaError_t launch_split_gemm(const bf16* a_hi, const bf16* a_lo, const bf16* t_
       split_gemm_kernel<S, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(cdiv(cols, kTileN), cdiv(rows, kTileM), B);
-  split_gemm_kernel<S, Epilogue><<<grid, kGemmThreads, kGemmSmem, stream>>>(
+  constexpr int kThreads = SchemeTraits<S>::kF32 ? kFfmaThreads : kGemmThreads;
+  split_gemm_kernel<S, Epilogue><<<grid, kThreads, kGemmSmem, stream>>>(
       m_ahi, m_alo, m_bhi, m_blo, rows, K / kTileK, epi);
   return cudaGetLastError();
 }
 
-// The device buffers of one iteration.  The float32 tables (n, F) serve
-// kHighest; fwd (2 F_pad, n_pad) and inv (n_pad, 2 F_pad) are M2^T and M2
-// as bf16 halves (lo may be null where no scheme of the call reads it).
-// frame_hi/lo (B, T, n_pad) are the forward's split frames (null for a
-// kHighest forward); p (spec or the planes) is what the inverse reads.
+// The device buffers of one iteration.  fwd (2 F_pad, n_pad) and inv
+// (n_pad, 2 F_pad) are M2^T and M2, in float32 for kHighest and as bf16
+// halves (lo may be null where no scheme of the call reads it).  The
+// forward's frames (B, T, n_pad) are frame_f32 for kHighest, else the split
+// frame_hi/lo (null where the forward reads none); p is what the inverse
+// reads.
 struct Buffers {
-  const float* cos;
-  const float* sin;
+  const float* fwd_f32;
+  const float* inv_f32;
   const bf16* fwd_hi;
   const bf16* fwd_lo;
   const bf16* inv_hi;
   const bf16* inv_lo;
+  float* frame_f32;
   bf16* frame_hi;
   bf16* frame_lo;
   POut p;
@@ -760,22 +754,28 @@ int run_dft_iteration(const float* x_in, float* x_out, const float2* state_in,
                       cudaStream_t stream) {
   const int n_pad = static_cast<int>(cdiv(n, 64)) * 64;
   const int f_pad = static_cast<int>(cdiv(n_bins, 32)) * 32;
-  if (inv_scheme == kHighest ? buf.p.spec == nullptr
+  if (inv_scheme == kHighest ? buf.p.f32 == nullptr || buf.p.hi != nullptr
                              : buf.p.hi == nullptr || (data_lo(inv_scheme) && buf.p.lo == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fwd_scheme == kHighest ? buf.frame_f32 == nullptr : buf.frame_hi == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const ForwardEpilogue<Middle> fwd_epi{state_in, state_out, target, wts, mag, buf.p,
                                         T, n_bins, f_pad, valid_t, middle};
   cudaError_t err = cudaSuccess;
   const bool fwd_ok = with_scheme(fwd_scheme, [&](auto s) {
     constexpr int S = decltype(s)::value;
-    if constexpr (S == kHighest) {
-      const dim3 grid(cdiv(f_pad, kBN), cdiv(T, kBM), B);
-      dft_forward_f32_kernel<Middle><<<grid, kThreads, 0, stream>>>(
-          x_in, window, buf.cos, buf.sin, n, hop, lp, fwd_epi);
+    const size_t groups = static_cast<size_t>(B) * T * (n_pad / 8);
+    const unsigned blocks = static_cast<unsigned>((groups + 255) / 256);
+    if constexpr (SchemeTraits<S>::kF32) {
+      frame_split_kernel<float><<<blocks, 256, 0, stream>>>(x_in, window, buf.frame_f32, nullptr,
+                                                            B, T, n, n_pad, hop, lp);
       err = cudaGetLastError();
+      if (err == cudaSuccess) {
+        err = launch_split_gemm<S>(buf.frame_f32, nullptr, buf.fwd_f32, nullptr, B, T, n_pad,
+                                   2 * f_pad, 2 * f_pad, fwd_epi, stream);
+      }
     } else {
-      const size_t groups = static_cast<size_t>(B) * T * (n_pad / 8);
-      frame_split_kernel<<<static_cast<unsigned>((groups + 255) / 256), 256, 0, stream>>>(
+      frame_split_kernel<bf16><<<blocks, 256, 0, stream>>>(
           x_in, window, buf.frame_hi, SchemeTraits<S>::kALo ? buf.frame_lo : nullptr, B, T, n,
           n_pad, hop, lp);
       err = cudaGetLastError();
@@ -790,10 +790,9 @@ int run_dft_iteration(const float* x_in, float* x_out, const float2* state_in,
   const InverseEpilogue inv_epi{window, buf.frames, T, n};
   const bool inv_ok = with_scheme(inv_scheme, [&](auto s) {
     constexpr int S = decltype(s)::value;
-    if constexpr (S == kHighest) {
-      dft_inverse_f32_kernel<<<dim3(cdiv(n, kBN), cdiv(T, kBM), B), kThreads, 0, stream>>>(
-          buf.p.spec, buf.cos, buf.sin, n_bins, inv_epi);
-      err = cudaGetLastError();
+    if constexpr (SchemeTraits<S>::kF32) {
+      err = launch_split_gemm<S>(buf.p.f32, nullptr, buf.inv_f32, nullptr, B, T, 2 * f_pad, n_pad,
+                                 n, inv_epi, stream);
     } else {
       err = launch_split_gemm<S>(buf.p.hi, buf.p.lo, buf.inv_hi, buf.inv_lo, B, T, 2 * f_pad,
                                  n_pad, n, inv_epi, stream);

@@ -35,7 +35,7 @@ import numbers
 import torch
 
 from ..config import STFT_KWARG_NAMES, STFTConfig
-from ..ops import dft
+from ..ops import dft, fourier
 from ..ops.cuda import _dft, gl_fullrun, gl_fused
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
@@ -180,6 +180,7 @@ def resolve_backend(backend: str, cfg: STFTConfig, window, device,
     spectrogram is real (``is_complex`` False), else ``'fft'``; on the CPU
     ``'fft'``.  Decided from the config, before any launch.  Shared by
     ``griffin_lim`` and ``ADMM``."""
+    fourier.check_not_xla_lowering(backend, direct_dft=True)
     if backend in ("pallas", "pallas4"):
         raise ValueError(
             f"backend {backend!r} is a TPU kernel; the port's counterparts are 'dft' "

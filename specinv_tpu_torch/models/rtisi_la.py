@@ -282,6 +282,7 @@ def _resolve_backend(backend: str, cfg: STFTConfig, window, dtype, device,
     ``precision`` (None, ``'high'`` or ``'highest'``: the kernel computes in
     full float32) applies to it only.
     """
+    fourier.check_not_xla_lowering(backend)
     if backend == "pallas":
         raise ValueError(
             "RTISI-LA has no 'pallas' backend (the JAX package removed its "

@@ -47,17 +47,17 @@ _SIGNATURES = {
         _P,                                       # stream
     ],
     "specinv_gl_dft_iteration": [
-        *[_P] * 21,                               # x_in x_out st_in st_out target window w
-                                                  # cos sin fwd_hi fwd_lo inv_hi inv_lo
-                                                  # inv_env spec frames mag frame_hi frame_lo
-                                                  # p_hi p_lo
+        *[_P] * 22,                               # x_in x_out st_in st_out target window w
+                                                  # fwd inv fwd_hi fwd_lo inv_hi inv_lo
+                                                  # inv_env frames mag frame_f32 frame_hi
+                                                  # frame_lo p_f32 p_hi p_lo
         *[_I] * 11,                               # B T n hop n_bins lp p_amt e pad_mode
                                                   # fwd_scheme inv_scheme
         _F,                                       # lr
         _P,                                       # stream
     ],
     "specinv_admm_dft_iteration": [
-        *[_P] * 21,                               # as specinv_gl_dft_iteration
+        *[_P] * 22,                               # as specinv_gl_dft_iteration
         *[_I] * 11,
         _F, _I,                                   # rho valid_t
         _P,                                       # stream

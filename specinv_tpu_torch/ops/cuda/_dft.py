@@ -2,9 +2,9 @@
 the scratch, the launch (:class:`Launch`, bound once per run) and the
 gradient.
 
-``csrc/dft_iter.cuh`` is one iteration engine (for a split scheme a
-frame-split launch, a forward-product launch with an algorithm-specific
-middle, an inverse-product launch, and ``fullrun.cuh``'s OLA launch);
+``csrc/dft_iter.cuh`` is one iteration engine (a frame launch, a
+forward-product launch with an algorithm-specific middle, an
+inverse-product launch, and ``fullrun.cuh``'s OLA launch);
 ``gl_fused`` and ``admm_fused`` wrap its two C entry points.  Both keep the
 signal ``x_pad (B, lp)`` in padded coordinates and the state and target as
 ``(B, T, F)`` onesided planes in natural bin order, and return ``(x_pad,
@@ -44,16 +44,17 @@ def supports(cfg: STFTConfig, window) -> bool:
 
 def padded_sizes(n_fft: int) -> tuple[int, int]:
     """``(n_pad, f_pad)``: n_fft rounded up to 64 and F = n_fft // 2 + 1 to
-    32, so that every bf16 row of the split kernels' operands is a whole
-    number of 128-byte lines (the depth of one tensor-core stage)."""
+    32, so that every row of the kernels' operands is a whole number of
+    128-byte lines (one stage is 64 deep: a bf16 line, two float32 ones)."""
     return -(-n_fft // 64) * 64, -(-(n_fft // 2 + 1) // 32) * 32
 
 
 def interleaved_tables(n_fft: int, normalized: bool):
     """``(fwd, inv)`` float32 CPU tensors: the tables of
-    :func:`dft.dft_tables` as the split kernels read them.  ``M2 (n_pad, 2
-    f_pad)`` holds ``cos[k, f]`` at ``[k, 2f]`` and ``-sin[k, f]`` at ``[k, 2f +
-    1]``, zeros in the pad (k >= n_fft, f >= F): the forward's operand is
+    :func:`dft.dft_tables` as the kernels read them ('highest' as they are,
+    the split schemes as bf16 halves).  ``M2 (n_pad, 2 f_pad)`` holds
+    ``cos[k, f]`` at ``[k, 2f]`` and ``-sin[k, f]`` at ``[k, 2f + 1]``,
+    zeros in the pad (k >= n_fft, f >= F): the forward's operand is
     ``fwd = M2^T`` (each output column pair the (re, im) of one bin), the
     inverse's ``inv = M2`` (rows matching P's (re, im) interleave).  Both are
     row-major, the contraction innermost."""
@@ -67,10 +68,10 @@ def interleaved_tables(n_fft: int, normalized: bool):
 
 
 class DeviceTables(NamedTuple):
-    cos: torch.Tensor     # (n, F) float32, 'highest'
-    sin: torch.Tensor
     w: torch.Tensor       # (F) fold weights * iscale / fscale
-    fwd_hi: torch.Tensor  # (2 f_pad, n_pad) bf16 halves of interleaved_tables' fwd
+    fwd: torch.Tensor     # (2 f_pad, n_pad) float32: interleaved_tables' fwd, 'highest'
+    inv: torch.Tensor     # (n_pad, 2 f_pad) float32: its inv
+    fwd_hi: torch.Tensor  # bf16 halves of fwd
     fwd_lo: torch.Tensor
     inv_hi: torch.Tensor  # (n_pad, 2 f_pad) bf16 halves of its inv
     inv_lo: torch.Tensor
@@ -79,10 +80,10 @@ class DeviceTables(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def device_tables(n_fft: int, normalized: bool, device: torch.device) -> DeviceTables:
     """The tables on ``device``, built once per ``(n_fft, normalized,
-    device)`` (about 52 MB at n_fft 2048)."""
-    cos, sin, w = dft.table_tensors(n_fft, normalized, device, torch.float32)
+    device)`` (about 69 MB at n_fft 2048)."""
+    w = torch.from_numpy(np.array(dft.dft_tables(n_fft, normalized)[2])).to(device)
     fwd, inv = (t.to(device) for t in interleaved_tables(n_fft, normalized))
-    return DeviceTables(cos, sin, w, *dft.split_bf16(fwd), *dft.split_bf16(inv))
+    return DeviceTables(w, fwd, inv, *dft.split_bf16(fwd), *dft.split_bf16(inv))
 
 
 def _ptr(t):
@@ -119,21 +120,20 @@ class Launch:
         def scratch(shape, dtype, needed=True):
             return torch.empty(shape, dtype=dtype, device=self.dev) if needed else None
 
-        # Written and read within an iteration: P for a float32 inverse, the
-        # frames, the split frames of a split forward, P's split planes.
-        spec = scratch((B, T, n_bins), torch.complex64, inv == "highest")
+        # Written and read within an iteration: the frames; the forward's
+        # frames, float32 or split; P, float32 or split.
         frames = scratch((B, T, n), torch.float32)
-        planes = (scratch((B, T, n_pad), torch.bfloat16, fwd != "highest"),
+        planes = (scratch((B, T, n_pad), torch.float32, fwd == "highest"),
+                  scratch((B, T, n_pad), torch.bfloat16, fwd != "highest"),
                   scratch((B, T, n_pad), torch.bfloat16, dft.needs_lo(fwd)),
+                  scratch((B, T, 2 * f_pad), torch.float32, inv == "highest"),
                   scratch((B, T, 2 * f_pad), torch.bfloat16, inv != "highest"),
                   scratch((B, T, 2 * f_pad), torch.bfloat16, dft.needs_lo(inv)))
-        self.held = (target, window, inv_env, tab, spec, frames, planes)
+        self.held = (target, window, inv_env, tab, frames, planes)
         self.fn, self.count, self.entry = getattr(_build.library(), entry), count, entry
         self.mag_shape = (B, T, n_bins) if with_mag else None
-        self.head = (target.data_ptr(), window.data_ptr(), tab.w.data_ptr(), tab.cos.data_ptr(),
-                     tab.sin.data_ptr(), tab.fwd_hi.data_ptr(), tab.fwd_lo.data_ptr(),
-                     tab.inv_hi.data_ptr(), tab.inv_lo.data_ptr(), inv_env.data_ptr(),
-                     _ptr(spec), frames.data_ptr())
+        self.head = (target.data_ptr(), window.data_ptr(),
+                     *(t.data_ptr() for t in tab), inv_env.data_ptr(), frames.data_ptr())
         self.tail = (*(_ptr(t) for t in planes), B, T, n, cfg.hop_length, n_bins, geo.lp,
                      geo.p_amt, geo.e, PAD_CODES[cfg.pad_mode], dft.SCHEMES.index(fwd),
                      dft.SCHEMES.index(inv), *scalars)

@@ -21,6 +21,9 @@ import torch
 from ..config import STFTConfig
 
 VALID_DFT_BACKENDS = ("auto", "fft")
+# The JAX package's XLA lowerings of the DFT (its fourier.VALID_DFT_BACKENDS
+# beside 'fft'), which the port does not have
+XLA_DFT_BACKENDS = ("matmul", "matmul4")
 PRECISIONS = ("default", "high", "highest")
 
 _DEFAULT_PRECISION = "high"
@@ -40,7 +43,21 @@ def default_precision() -> str:
     return _DEFAULT_PRECISION
 
 
+def check_not_xla_lowering(backend, direct_dft: bool = False) -> None:
+    """Raise for a JAX XLA lowering of the DFT (``'matmul'``, ``'matmul4'``),
+    naming the port's counterpart: ``'fft'``, and ``'dft'`` where the entry
+    point has the direct DFT (``direct_dft``).  No entry point runs another
+    path in its place (the JAX package's rule: no silent backend
+    downgrades)."""
+    if backend in XLA_DFT_BACKENDS:
+        also = ", or 'dft' for the direct DFT as products" if direct_dft else ""
+        raise ValueError(
+            f"backend {backend!r} is an XLA lowering of the DFT that the port does not "
+            f"have; the port's counterpart is 'fft' (same DFT){also}")
+
+
 def resolve_backend(backend: str) -> str:
+    check_not_xla_lowering(backend)
     if backend not in VALID_DFT_BACKENDS:
         raise ValueError(
             f"unknown DFT backend {backend!r}; expected one of {VALID_DFT_BACKENDS}"

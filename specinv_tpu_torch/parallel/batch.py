@@ -86,7 +86,7 @@ def batched(
         if pad:
             spec = torch.cat([spec, spec.new_zeros((pad, *spec.shape[1:]))], dim=0)
         group = mesh.group(axis_name)
-        rows = mesh_mod.batch_sharding(mesh, spec.shape[0], axis_name)
+        rows = mesh_mod.batch_sharding(mesh, batch=spec.shape[0], axis_name=axis_name)
         local = replicated(spec, [group])[rows]
         with bound(mesh):
             out = fn(local, *args, **kwargs)

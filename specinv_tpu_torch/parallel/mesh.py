@@ -126,10 +126,19 @@ def make_mesh(data: Optional[int] = None, seq: int = 1, device=None) -> Mesh:
     return Mesh(ranks, rank, groups, dev)
 
 
-def batch_sharding(mesh: Mesh, batch: int, axis_name: str = "data") -> slice:
+def batch_sharding(mesh: Mesh, *positional, batch: Optional[int] = None,
+                   axis_name: str = "data") -> slice:
     """This rank's rows of a batch of ``batch`` clips split over
     ``axis_name`` (the JAX ``NamedSharding`` of the batch axis, seen from
-    one rank)."""
+    one rank).  Called as ``batch_sharding(mesh, *, batch, axis_name)``:
+    JAX's ``batch_sharding(mesh, ndim, axis_name)`` takes an array rank and
+    returns a sharding, so a positional second argument raises rather than
+    being read as a batch size."""
+    if positional or batch is None:
+        raise TypeError(
+            "batch_sharding(mesh, *, batch, axis_name='data') takes the batch by keyword: "
+            "JAX's second argument is ndim and returns a NamedSharding, the port's "
+            "returns this rank's rows of `batch` clips; pass batch=")
     n = mesh.shape[axis_name]
     if batch % n:
         raise ValueError(f"batch {batch} does not split over {n} ranks of {axis_name!r}")
@@ -141,4 +150,4 @@ def batch_sharding(mesh: Mesh, batch: int, axis_name: str = "data") -> slice:
 def shard_batch(x, mesh: Mesh, axis_name: str = "data") -> torch.Tensor:
     """This rank's slice of ``x``'s batch axis, on the mesh's device."""
     x = torch.as_tensor(x)
-    return x[batch_sharding(mesh, x.shape[0], axis_name)].to(mesh.device)
+    return x[batch_sharding(mesh, batch=x.shape[0], axis_name=axis_name)].to(mesh.device)

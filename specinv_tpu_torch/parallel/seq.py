@@ -85,6 +85,7 @@ BACKENDS = ("auto", "fft", "kernel")
 
 def _check_seq_backend(backend: str, algo: str) -> None:
     """Reject backend strings the sequence-parallel path cannot honour."""
+    fourier.check_not_xla_lowering(backend)
     if backend == "pallas4":
         raise ValueError(
             "backend 'pallas4' is a TPU kernel; its counterpart on the "
@@ -278,7 +279,7 @@ def _prepare(spec, mesh: Mesh, shard_batch_axis: bool, groups, **stft_kwargs):
         raise ValueError("the sequence-parallel path needs a real window")
     total = spec_tm.numel()
     if shard_batch_axis:
-        spec_tm = spec_tm[mesh_mod.batch_sharding(mesh, spec_tm.shape[0])]
+        spec_tm = spec_tm[mesh_mod.batch_sharding(mesh, batch=spec_tm.shape[0])]
     if spec_tm.is_complex():
         cmplx_tm, target_tm = spec_tm, spec_tm.abs()
     else:

@@ -295,3 +295,14 @@ def test_modes_agree_and_early_stop_freezes():
         # the stop fires at the second eval: 10 iterations, not 60
         c = st.ADMM(mag, max_iter=10, tol=0.0, backend=backend, verbose=False)
         torch.testing.assert_close(a, c, rtol=0, atol=1e-12 * float(c.abs().max()))
+
+
+@pytest.mark.parametrize("backend", ["matmul", "matmul4"])
+def test_xla_dft_backends_name_the_ports_counterpart(backend):
+    """As for griffin_lim: JAX's ADMM runs the XLA lowering, the port raises
+    naming 'fft' and 'dft' (``griffin_lim.resolve_backend``, shared)."""
+    mag = _mag(make_signal((4000,)), 256).astype(np.float32)  # matmul4: float32
+    assert np.isfinite(np.asarray(si.ADMM(mag, max_iter=2, verbose=False,
+                                          backend=backend))).all()
+    with pytest.raises(ValueError, match="the port's counterpart is 'fft'.*'dft'"):
+        st.ADMM(torch.from_numpy(mag), max_iter=2, verbose=False, backend=backend)

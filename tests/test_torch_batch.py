@@ -38,6 +38,7 @@ from jax.sharding import PartitionSpec as P
 import specinv_tpu as si
 import specinv_tpu_torch as st
 from specinv_tpu.parallel.batch import batched as jbatched
+from specinv_tpu.parallel.mesh import batch_sharding as jbatch_sharding
 from specinv_tpu.parallel.mesh import make_mesh as jmake_mesh
 from specinv_tpu.utils import runner as jrunner
 from specinv_tpu_torch.parallel import batch_sharding, batched, make_mesh, shard_batch
@@ -175,7 +176,7 @@ def test_default_device_without_a_card(monkeypatch):
 def test_shard_batch_is_this_ranks_slice():
     mesh = make_mesh(device="cpu")
     x = torch.arange(16.0).reshape(16, 1)
-    assert batch_sharding(mesh, 16) == slice(0, 16)
+    assert batch_sharding(mesh, batch=16) == slice(0, 16)
     assert torch.equal(shard_batch(x, mesh), x)
 
 
@@ -209,3 +210,18 @@ def test_loss_psum_axes_needs_a_bound_mesh():
     torch.testing.assert_close(ours[0], st.griffin_lim(spec, **kw), rtol=0, atol=0)
     with collective.bound(mesh), pytest.raises(ValueError, match="unknown mesh axis"):
         trunner.stop_loss_fn(("model",))
+
+
+def test_batch_sharding_refuses_the_jax_call_shape():
+    """JAX's ``batch_sharding(mesh, ndim)`` returns a sharding; the port's
+    takes ``batch=`` and refuses a positional second argument (it would read
+    the rank as a batch size)."""
+    assert jbatch_sharding(jmake_mesh(data=4, seq=1), 2).spec == P("data", None)
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(TypeError, match="batch="):
+        batch_sharding(mesh, 2)
+    with pytest.raises(TypeError, match="batch="):
+        batch_sharding(mesh, 2, "data")
+    with pytest.raises(TypeError, match="batch="):
+        batch_sharding(mesh)
+    assert batch_sharding(mesh, batch=4, axis_name="data") == slice(0, 4)

@@ -206,6 +206,60 @@ def test_dft_kernel_matches_plain_version_at_padded_shapes(dev, name, precision,
         assert _rel(u, v) <= limit
 
 
+def _dft_errors(mod, run, scalar, extra, cfg, state, precision):
+    """One launch of the kernel and of its plain version from ``state``:
+    the distances of x, |S| and the state, relative to the plain max."""
+    before = mod.launches
+    ours = getattr(mod, run)(*state, scalar, cfg, *extra, precision=precision)
+    ref = getattr(mod, f"{run}_reference")(*state, scalar, cfg, *extra, precision=precision)
+    torch.cuda.synchronize()
+    assert mod.launches - before == 1
+    return [_rel(u, v) for u, v in zip(ours, ref)]
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+@pytest.mark.parametrize("batch", [1, 3])
+def test_dft_highest_matches_plain_version_at_config_1(dev, name, batch):
+    """'highest' (float32 FFMA from the TMA ring) at BASELINE config 1's
+    shapes (n_fft 2048, hop 512, 431 frames of 10 s) at B = 1 and 3, within
+    the tier's limits."""
+    mod, run, scalar, extra, limits = DFT_KERNELS[name]
+    cfg, state = _state(dev, 2048, 512, batch=batch, n_samples=220500)
+    assert state[2].shape == (batch, 431, 1025)
+    for err, limit in zip(_dft_errors(mod, run, scalar, extra, cfg, state, "highest"),
+                          limits["highest"]):
+        assert err <= limit
+
+
+@pytest.mark.parametrize("n_fft,hop", [(400, 160), (2048, 512)])
+@pytest.mark.parametrize("pair", [("high", "highest"), ("highest", "high")])
+def test_dft_mixed_pairs_match_plain_version(dev, pair, n_fft, hop):
+    """A (forward, inverse) pair across the two engines: the forward writes
+    P as the inverse reads it (float32 planes for a 'highest' inverse, bf16
+    halves for a split one).  Each output within the larger of the two
+    tiers' limits."""
+    mod, run, scalar, extra, limits = DFT_KERNELS["gl_fused"]
+    cfg, state = _state(dev, n_fft, hop, n_samples=max(7800, 8 * n_fft))
+    bounds = [max(a, b) for a, b in zip(limits["high"], limits["highest"])]
+    for err, limit in zip(_dft_errors(mod, run, scalar, extra, cfg, state, pair), bounds):
+        assert err <= limit
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+def test_dft_highest_launches_repeat_their_bits(dev, name):
+    """Two launches of 'highest' from the same state give the same bits
+    (every sum in a fixed order, no atomics), at 400/160 with B = 3 and at
+    config 1."""
+    mod, run, scalar, extra, _ = DFT_KERNELS[name]
+    for n_fft, hop, batch, n_samples in ((400, 160, 3, 7800), (2048, 512, 1, 220500)):
+        cfg, state = _state(dev, n_fft, hop, batch=batch, n_samples=n_samples)
+        fn = getattr(mod, run)
+        a = fn(*state, scalar, cfg, *extra, precision="highest")
+        b = fn(*state, scalar, cfg, *extra, precision="highest")
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 @pytest.mark.parametrize("name,precision", [
     ("gl_fused", "high"), ("gl_fused", ("high", "highest")), ("gl_fused", ("highest", "high")),
     ("admm_fused", "high"), ("admm_fused", "bf16x2t")])
@@ -213,8 +267,8 @@ def test_dft_bound_iterations_equal_single_calls(dev, name, precision):
     """The 'dft' loop's bound iteration (bind: checks, tables and scratch
     made once, the scratch reused) gives each of 3 chained iterations the
     bits of the public one-call wrapper; with a (forward, inverse) pair P
-    passes through the planes (a split inverse) or the complex spectrum (a
-    float32 one)."""
+    passes through the bf16 planes (a split inverse) or the float32 ones (a
+    'highest' one)."""
     mod, run, scalar, extra, _ = DFT_KERNELS[name]
     cfg, (x, s, tgt, win, env) = _state(dev, 400, 160)
     iteration = mod.bind(tgt, win, env, scalar, cfg, *extra, precision=precision)

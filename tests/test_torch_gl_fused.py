@@ -222,6 +222,48 @@ def test_interleaved_tables_hold_the_jax_tables_and_zero_padding(n_fft, normaliz
     assert torch.equal(hi[:, 1::2], -shi) and torch.equal(lo[:, 1::2], -slo)
 
 
+
+@pytest.mark.parametrize("n_fft,hop,normalized", [(400, 160, False), (500, 125, True),
+                                                  (2048, 512, False)])
+def test_highest_operands_are_the_interleaved_float32_tables(n_fft, hop, normalized):
+    """What the 'highest' tier of the kernels reads: the device tables'
+    float32 ``fwd`` / ``inv`` (here on the CPU) are interleaved_tables' (cos
+    at [k, 2f], -sin at [k, 2f + 1], zeros in the pad), the fold weights
+    dft_tables'; the framed signal zero-padded to n_pad (B, T, n_pad) times
+    M2 gives the forward of scheme_matmul(..., 'highest') in its
+    interleaved columns, and P interleaved and zero-padded (B, T, 2 f_pad)
+    times M2^T the inverse, to float32 rounding (only the order of the sums
+    differs), with exact zeros in the pad columns of the forward."""
+    cos, sin, w = (torch.from_numpy(np.array(a)) for a in dft.dft_tables(n_fft, normalized))
+    tab = _dft.device_tables(n_fft, normalized, torch.device("cpu"))
+    fwd, inv = _dft.interleaved_tables(n_fft, normalized)
+    assert torch.equal(tab.fwd, fwd) and torch.equal(tab.inv, inv) and torch.equal(tab.w, w)
+    assert tab.fwd.dtype == tab.inv.dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(tab[3:], (*dft.split_bf16(fwd),
+                                                           *dft.split_bf16(inv))))
+    n_pad, f_pad = _dft.padded_sizes(n_fft)
+    f = n_fft // 2 + 1
+    rng = np.random.default_rng(n_fft)
+    x = torch.from_numpy(rng.standard_normal((2, 8 * hop + n_fft)).astype(np.float32))
+    win = torch.hann_window(n_fft)
+    frames = x.unfold(-1, n_fft, hop) * win  # (B, T, n)
+    padded = torch.nn.functional.pad(frames, (0, n_pad - n_fft))
+    s = padded @ inv  # (B, T, 2 f_pad)
+    top = float(s.abs().max())
+    ref_re = dft.scheme_matmul(frames, cos, "highest")
+    ref_im = -dft.scheme_matmul(frames, sin, "highest")
+    assert float((s[..., 0 : 2 * f : 2] - ref_re).abs().max()) <= 1e-6 * top
+    assert float((s[..., 1 : 2 * f : 2] - ref_im).abs().max()) <= 1e-6 * top
+    assert not s[..., 2 * f :].any()
+    p = torch.complex(*(torch.from_numpy(rng.standard_normal((2, 9, f)).astype(np.float32))
+                        for _ in range(2)))
+    planes = torch.nn.functional.pad(torch.view_as_real(p).flatten(-2), (0, 2 * (f_pad - f)))
+    y = (planes @ fwd)[..., :n_fft]
+    ref = (dft.scheme_matmul(p.real, cos.T, "highest")
+           - dft.scheme_matmul(p.imag, sin.T, "highest"))
+    assert float((y - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert not (planes @ fwd)[..., n_fft:].any()
+
 def test_split_and_schemes_match_jax():
     """The bf16 split and the product schemes against JAX's own, bitwise on
     the halves, to float32 rounding on the products."""

@@ -260,3 +260,14 @@ def test_port_imports_no_jax():
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'specinv_tpu' not in sys.modules, 'specinv_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+@pytest.mark.parametrize("backend", ["matmul", "matmul4"])
+def test_xla_dft_backends_name_the_ports_counterpart(backend):
+    """JAX's XLA lowerings of the DFT run in the JAX package; the port has
+    none and raises, naming 'fft' and 'dft', rather than run another path."""
+    mag = np.abs(torch_stft(make_signal((4000,)), 256)).astype(np.float32)  # matmul4: float32
+    assert np.isfinite(np.asarray(si.griffin_lim(mag, max_iter=2, verbose=False,
+                                                 backend=backend))).all()
+    with pytest.raises(ValueError, match="the port's counterpart is 'fft'.*'dft'"):
+        st.griffin_lim(torch.from_numpy(mag), max_iter=2, verbose=False, backend=backend)

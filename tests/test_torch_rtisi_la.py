@@ -323,3 +323,18 @@ def test_verbose_reports_progress(monkeypatch):
     st.RTISI_LA(spec[None].expand(3, -1, -1), look_ahead=1, max_iter=2, verbose=True,
                 backend="kernel", chunk_rows=4)
     assert msgs == ["rtisi-la chunk 1/2", "rtisi-la chunk 2/2"]
+
+
+@pytest.mark.parametrize("backend", ["matmul", "matmul4"])
+def test_xla_dft_backends_name_the_ports_counterpart(backend):
+    """RTISI_LA and RTISIStreamer: JAX runs the XLA lowering, the port
+    raises naming 'fft'."""
+    mag = _mag(make_signal((2000,)), 256)[:, :8].astype(np.float32)  # matmul4: float32
+    kw = dict(look_ahead=2, max_iter=2, backend=backend)
+    assert np.isfinite(np.asarray(si.RTISI_LA(mag, verbose=False, **kw))).all()
+    jax_stream = si.RTISIStreamer(num_freqs=mag.shape[0], **kw)
+    jax_stream.push(mag[:, 0])
+    with pytest.raises(ValueError, match="the port's counterpart is 'fft'"):
+        st.RTISI_LA(torch.from_numpy(mag), verbose=False, **kw)
+    with pytest.raises(ValueError, match="the port's counterpart is 'fft'"):
+        st.RTISIStreamer(num_freqs=mag.shape[0], **kw)

@@ -311,7 +311,7 @@ def test_seq_backend_rejections():
     spec = torch.from_numpy(worker.stft_mag(worker.signal(4410, dtype=np.float32), 256))
     mesh = make_mesh(device="cpu")
     for fn in (griffin_lim_seq, admm_seq):
-        for backend in ("pallas", "matmul", "matmul4", "nccl"):
+        for backend in ("pallas", "nccl"):
             with pytest.raises(ValueError, match="not supported"):
                 fn(spec, mesh, max_iter=2, backend=backend)
         with pytest.raises(ValueError, match="'kernel'"):
@@ -320,3 +320,16 @@ def test_seq_backend_rejections():
     odd = torch.from_numpy(worker.stft_mag(worker.signal(4410, dtype=np.float32), 400))
     with pytest.raises(ValueError, match="power of two"):
         griffin_lim_seq(odd, mesh, max_iter=2, backend="kernel")
+
+
+@pytest.mark.parametrize("backend", ["matmul", "matmul4"])
+def test_xla_dft_backends_name_the_ports_counterpart(backend):
+    """griffin_lim_seq / admm_seq: JAX's seq path runs the XLA lowering, the
+    port raises naming 'fft'."""
+    spec = worker.stft_mag(worker.signal(4410, dtype=np.float32), 256)
+    jmesh_1 = jmesh.make_mesh(data=1, seq=1)
+    mesh = make_mesh(device="cpu")
+    for jfn, fn in ((jseq.griffin_lim_seq, griffin_lim_seq), (jseq.admm_seq, admm_seq)):
+        assert np.isfinite(np.asarray(jfn(spec, jmesh_1, max_iter=2, backend=backend))).all()
+        with pytest.raises(ValueError, match="the port's counterpart is 'fft'"):
+            fn(torch.from_numpy(spec), mesh, max_iter=2, backend=backend)

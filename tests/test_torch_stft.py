@@ -207,3 +207,16 @@ def test_public_transforms_take_jax_precision():
             ttr.stft(x, 512, precision=bad)
         with pytest.raises(ValueError):
             ttr.istft(spec, precision=bad)
+
+
+@pytest.mark.parametrize("backend", ["matmul", "matmul4"])
+def test_xla_dft_backends_name_the_ports_counterpart(backend):
+    """stft / istft: JAX computes the DFT as its XLA lowering, the port
+    raises naming 'fft'."""
+    x = make_signal((2, 3000), np.float32, seed=5)
+    spec = jtr.stft(jnp.asarray(x), 256, backend=backend)
+    assert np.isfinite(np.asarray(jtr.istft(spec, length=3000, backend=backend))).all()
+    with pytest.raises(ValueError, match="the port's counterpart is 'fft'"):
+        ttr.stft(torch.from_numpy(x), 256, backend=backend)
+    with pytest.raises(ValueError, match="the port's counterpart is 'fft'"):
+        ttr.istft(ttr.stft(torch.from_numpy(x), 256), length=3000, backend=backend)
