@@ -79,9 +79,13 @@ class STFTConfig:
 
 
 def as_numpy_window(window: Any) -> np.ndarray:
-    """Accept numpy / torch / list windows uniformly."""
+    """Accept numpy / torch / list windows uniformly (a window on the card
+    is copied to the host: one host sync)."""
     if hasattr(window, "detach"):
-        window = window.detach().cpu().numpy()
+        from .utils.profiling import host_sync
+
+        with host_sync(window):
+            window = window.detach().cpu().numpy()
     return np.asarray(window)
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..config import STFTConfig
 from ..ops import dft, fourier
 from ..ops.framing import frame, ola_envelope, overlap_add
+from ..utils.profiling import span
 from ..utils.runner import iterate_segmented, stats_eval_fns
 
 PROJ_EPS = 1e-16
@@ -298,25 +299,28 @@ def run_kernel_loop(run, state0, target, geo: PaddedGeometry, max_iter: int, tol
     eval segments of ``eva_iter`` iterations whose last iteration emits the
     two reduced sums, then an eval-free tail of ``max_iter % eva_iter``;
     the stop loss sums over the mesh axes ``loss_psum_axes`` when given.
+    The loop is one ``specinv.loop`` span, the trim a ``specinv.synth``.
     """
-    if not (early_stop or verbose):
-        x_pad = run(state0, max_iter)
-    else:
-        eva_n = min(eva_iter, max_iter)
+    with span("loop"):
+        if not (early_stop or verbose):
+            x_pad = run(state0, max_iter)
+        else:
+            eva_n = min(eva_iter, max_iter)
 
-        def seg_step(state):
-            x, plane, stats = run(state, eva_n, emit_state=True, with_loss=True)
-            return (x, plane), stats
+            def seg_step(state):
+                x, plane, stats = run(state, eva_n, emit_state=True, with_loss=True)
+                return (x, plane), stats
 
-        tail_fn = None
-        if max_iter % eva_iter:
-            def tail_fn(state):
-                return run(state, max_iter % eva_iter, emit_state=True), None
+            tail_fn = None
+            if max_iter % eva_iter:
+                def tail_fn(state):
+                    return run(state, max_iter % eva_iter, emit_state=True), None
 
-        loss_fn, metric_fn = stats_eval_fns(metric, target, loss_psum_axes)
-        x_pad = iterate_segmented(
-            seg_step, state0, target, max_iter=max_iter, tol=tol,
-            eva_iter=eva_iter, tail_fn=tail_fn, metric=metric, verbose=verbose,
-            loss_fn=loss_fn, metric_fn=metric_fn, mode=mode, remat=remat,
-        )[0]
-    return x_pad[..., geo.p_amt : geo.p_amt + geo.l_out]
+            loss_fn, metric_fn = stats_eval_fns(metric, target, loss_psum_axes)
+            x_pad = iterate_segmented(
+                seg_step, state0, target, max_iter=max_iter, tol=tol,
+                eva_iter=eva_iter, tail_fn=tail_fn, metric=metric, verbose=verbose,
+                loss_fn=loss_fn, metric_fn=metric_fn, mode=mode, remat=remat,
+            )[0]
+    with span("synth"):
+        return x_pad[..., geo.p_amt : geo.p_amt + geo.l_out]

@@ -39,11 +39,13 @@ from ..ops import dft
 from ..ops.cuda import admm_fullrun, admm_fused
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
+from ..utils.profiling import span
 from ..utils.runner import iterate, stop_loss_fn
 from ._kernel_driver import make_geometry, make_inv_env, run_kernel_loop
 from .common import prepare_spec_b3, restore_output
-from .griffin_lim import check_args, check_pack, magnitude_project, resolve_backend
-from .phase_init import phase_init_tm
+from .griffin_lim import (
+    check_args, check_pack, magnitude_project, resolve_backend, seed_spec, time_major,
+)
 
 
 class ADMMState(NamedTuple):
@@ -107,13 +109,14 @@ def run_tm_kernel(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     form be held to the literal chain in float64.
     """
     T = target_tm.shape[-2]
-    geo = make_geometry(cfg, T)
-    real = torch.float32 if target_tm.is_cuda else target_tm.dtype
-    win = window.to(real)
-    inv_env = make_inv_env(cfg, win, T, geo)
-    target = target_tm.to(real).contiguous()
-    y0 = init_spec_tm.to(torch.complex64 if real == torch.float32 else torch.complex128)
-    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).to(real), cfg)
+    with span("seed"):
+        geo = make_geometry(cfg, T)
+        real = torch.float32 if target_tm.is_cuda else target_tm.dtype
+        win = window.to(real)
+        inv_env = make_inv_env(cfg, win, T, geo)
+        target = target_tm.to(real).contiguous()
+        y0 = init_spec_tm.to(torch.complex64 if real == torch.float32 else torch.complex128)
+        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).to(real), cfg)
 
     def run(state, n_iters, **flags):
         return admm_fullrun.fused_admm_run(
@@ -159,17 +162,11 @@ def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
 
 
-def _full_run(spec_b3, window, rho, tol, cfg, max_iter, eva_iter, metric,
+def _full_run(spec_tm, window, rho, tol, cfg, max_iter, eva_iter, metric,
               verbose, mode, backend, early_stop, remat, precision=None,
               loss_psum_axes=None):
-    """Layout transpose + phase seed + loop."""
-    if spec_b3.dtype in (torch.bfloat16, torch.float16):
-        spec_b3 = spec_b3.float()
-    spec_tm = spec_b3.transpose(-1, -2)
-    if spec_tm.is_complex():
-        cmplx_tm, target_tm = spec_tm, spec_tm.abs()
-    else:
-        cmplx_tm, target_tm = phase_init_tm(spec_tm, cfg), spec_tm
+    """Phase seed + loop, from the time-major spectrogram."""
+    cmplx_tm, target_tm = seed_spec(spec_tm, cfg)
     if backend == "dft":
         return run_tm_dft(
             target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
@@ -211,23 +208,28 @@ def ADMM(
     tier, not a ``(forward, inverse)`` pair (see the module docstring);
     ``loss_psum_axes`` and ``pack`` as on :func:`griffin_lim`.
     """
-    if not (eva_iter > 0 and max_iter > 0 and tol >= 0):
-        raise ValueError(
-            f"need eva_iter > 0, max_iter > 0 and tol >= 0 "
-            f"(got {eva_iter}, {max_iter}, {tol})"
+    with span("call"):
+        with span("prep"):
+            if not (eva_iter > 0 and max_iter > 0 and tol >= 0):
+                raise ValueError(
+                    f"need eva_iter > 0, max_iter > 0 and tol >= 0 "
+                    f"(got {eva_iter}, {max_iter}, {tol})"
+                )
+            check_args(stft_kwargs, loss_psum_axes)
+            spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
+            backend = resolve_backend(backend, cfg, window, spec_b3.device,
+                                      spec_b3.is_complex())
+            check_pack(pack, backend, spec_b3.shape[0])
+            precision = dft.check_precision(precision, backend)
+            spec_tm = time_major(spec_b3)
+        x = _full_run(
+            spec_tm, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,
+            metric=metric, verbose=verbose, mode=mode, backend=backend,
+            early_stop=bool(tol > 0), remat=remat, precision=precision,
+            loss_psum_axes=loss_psum_axes,
         )
-    check_args(stft_kwargs, loss_psum_axes)
-    spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-    backend = resolve_backend(backend, cfg, window, spec_b3.device, spec_b3.is_complex())
-    check_pack(pack, backend, spec_b3.shape[0])
-    precision = dft.check_precision(precision, backend)
-    x = _full_run(
-        spec_b3, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,
-        metric=metric, verbose=verbose, mode=mode, backend=backend,
-        early_stop=bool(tol > 0), remat=remat, precision=precision,
-        loss_psum_axes=loss_psum_axes,
-    )
-    return restore_output(x, was_2d)
+        with span("synth"):
+            return restore_output(x, was_2d)
 
 
 admm = ADMM

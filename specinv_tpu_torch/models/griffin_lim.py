@@ -39,6 +39,7 @@ from ..ops import dft, fourier
 from ..ops.cuda import _dft, gl_fullrun, gl_fused
 from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
+from ..utils.profiling import span
 from ..utils.runner import iterate, stop_loss_fn
 from ._kernel_driver import PROJ_EPS, make_geometry, make_inv_env, run_kernel_loop
 from .common import prepare_spec_b3, restore_output
@@ -95,12 +96,13 @@ def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     """Griffin-Lim through the whole-run kernel (float32), the counterpart of
     the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L)."""
     T = target_tm.shape[-2]
-    geo = make_geometry(cfg, T)
-    win32 = window.float()
-    inv_env = make_inv_env(cfg, win32, T, geo)
-    target = target_tm.float().contiguous()
-    pre0 = init_spec_tm.to(torch.complex64)
-    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
+    with span("seed"):
+        geo = make_geometry(cfg, T)
+        win32 = window.float()
+        inv_env = make_inv_env(cfg, win32, T, geo)
+        target = target_tm.float().contiguous()
+        pre0 = init_spec_tm.to(torch.complex64)
+        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
 
     def run(state, n_iters, **flags):
         return gl_fullrun.fused_gl_run(
@@ -147,17 +149,27 @@ def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
 
 
-def _full_run(spec_b3, window, lr, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat, precision=None,
-              loss_psum_axes=None):
-    """Layout transpose + phase seed + loop."""
+def time_major(spec_b3: torch.Tensor) -> torch.Tensor:
+    """The ``(B, T, F)`` view the drivers take, 16-bit floats as float32."""
     if spec_b3.dtype in (torch.bfloat16, torch.float16):
         spec_b3 = spec_b3.float()
-    spec_tm = spec_b3.transpose(-1, -2)
-    if spec_tm.is_complex():
-        cmplx_tm, target_tm = spec_tm, spec_tm.abs()
-    else:
-        cmplx_tm, target_tm = phase_init_tm(spec_tm, cfg), spec_tm
+    return spec_b3.transpose(-1, -2)
+
+
+def seed_spec(spec_tm: torch.Tensor, cfg: STFTConfig):
+    """``(cmplx_tm, target_tm)``: a complex spectrogram and its magnitude,
+    or the SPSI seed of a magnitude and the magnitude itself."""
+    with span("seed"):
+        if spec_tm.is_complex():
+            return spec_tm, spec_tm.abs()
+        return phase_init_tm(spec_tm, cfg), spec_tm
+
+
+def _full_run(spec_tm, window, lr, tol, cfg, max_iter, eva_iter, metric,
+              verbose, mode, backend, early_stop, remat, precision=None,
+              loss_psum_axes=None):
+    """Phase seed + loop, from the time-major spectrogram."""
+    cmplx_tm, target_tm = seed_spec(spec_tm, cfg)
     if backend == "dft":
         return run_tm_dft(
             target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
@@ -260,17 +272,22 @@ def griffin_lim(
     global loss (on every backend); ``pack`` is taken on ``'kernel'`` as
     JAX takes it on ``'pallas4'`` (:func:`check_pack`) and changes nothing.
     """
-    if alpha < 0:
-        raise ValueError(f"alpha must be >= 0, got {alpha}")
-    check_args(stft_kwargs, loss_psum_axes)
-    spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-    backend = resolve_backend(backend, cfg, window, spec_b3.device, spec_b3.is_complex())
-    check_pack(pack, backend, spec_b3.shape[0])
-    precision = dft.check_precision(precision, backend)
-    x = _full_run(
-        spec_b3, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,
-        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        backend=backend, early_stop=bool(tol > 0), remat=remat, precision=precision,
-        loss_psum_axes=loss_psum_axes,
-    )
-    return restore_output(x, was_2d)
+    with span("call"):
+        with span("prep"):
+            if alpha < 0:
+                raise ValueError(f"alpha must be >= 0, got {alpha}")
+            check_args(stft_kwargs, loss_psum_axes)
+            spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
+            backend = resolve_backend(backend, cfg, window, spec_b3.device,
+                                      spec_b3.is_complex())
+            check_pack(pack, backend, spec_b3.shape[0])
+            precision = dft.check_precision(precision, backend)
+            spec_tm = time_major(spec_b3)
+        x = _full_run(
+            spec_tm, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,
+            eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+            backend=backend, early_stop=bool(tol > 0), remat=remat, precision=precision,
+            loss_psum_axes=loss_psum_axes,
+        )
+        with span("synth"):
+            return restore_output(x, was_2d)

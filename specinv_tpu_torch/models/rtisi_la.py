@@ -39,6 +39,7 @@ from ..ops.cuda import rtisi_fused
 from ..ops.framing import frame, overlap_add
 from ..ops.stft import make_envelope
 from ..transforms import as_tensor, default_device, numpy_dtype, window_tensor
+from ..utils.profiling import host_sync, span
 from ..utils.runner import checkpointed, gate_verbose
 from ._kernel_driver import PROJ_EPS, RTISIWindows
 from .common import prepare_spec_b3, restore_output
@@ -218,23 +219,25 @@ def _kernel_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter,
     """The ``'kernel'`` path (float32); with ``chunk_rows`` the streams run
     as sequential chunks of ``chunk_rows // (la+1)``.  Returns the committed
     frames."""
-    target_pad = target_pad.float()
-    update0 = _seed_update(target_pad, la, cfg)
-    windows = rtisi_windows(window.float(), cfg, asymmetric_window)
+    with span("seed"):
+        target_pad = target_pad.float()
+        update0 = _seed_update(target_pad, la, cfg)
+        windows = rtisi_windows(window.float(), cfg, asymmetric_window)
     args = (windows, lr, cfg, la, max_iter)
     B = target_pad.shape[0]
     chunk_b = _chunk_streams(B, chunk_rows, la)
-    if B <= chunk_b:
-        return _kernel_launches(target_pad, update0, *args, verbose, frames_per_launch)
-    nb = -(-B // chunk_b)
-    out = []
-    for c in range(nb):
-        rows = slice(c * chunk_b, (c + 1) * chunk_b)
-        out.append(_kernel_launches(target_pad[rows], update0[rows], *args, False,
-                                    frames_per_launch))
-        if verbose:  # per-frame lines would repeat once per chunk
-            _progress_sink(f"rtisi-la chunk {c + 1}/{nb}")
-    return torch.cat(out, dim=1)
+    with span("loop"):
+        if B <= chunk_b:
+            return _kernel_launches(target_pad, update0, *args, verbose, frames_per_launch)
+        nb = -(-B // chunk_b)
+        out = []
+        for c in range(nb):
+            rows = slice(c * chunk_b, (c + 1) * chunk_b)
+            out.append(_kernel_launches(target_pad[rows], update0[rows], *args, False,
+                                        frames_per_launch))
+            if verbose:  # per-frame lines would repeat once per chunk
+                _progress_sink(f"rtisi-la chunk {c + 1}/{nb}")
+        return torch.cat(out, dim=1)
 
 
 def run_tm(target_tm, window, lr, cfg: STFTConfig, look_ahead: int,
@@ -250,14 +253,16 @@ def run_tm(target_tm, window, lr, cfg: STFTConfig, look_ahead: int,
     """
     steps = target_tm.shape[1]
     la = look_ahead
-    target_pad = F.pad(target_tm, (0, 0, la, la))  # la zero frames on both sides
+    with span("prep"):
+        target_pad = F.pad(target_tm, (0, 0, la, la))  # la zero frames on both sides
     if backend == "kernel":
         frames = _kernel_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter,
                                 verbose, chunk_rows, frames_per_launch)
     else:
         frames = _scan_frames(target_pad, window, lr, cfg, la, asymmetric_window, max_iter,
                               verbose, remat)
-    return synthesize(frames[la:], window, cfg)
+    with span("synth"):
+        return synthesize(frames[la:], window, cfg)
 
 
 def synthesize(frames: torch.Tensor, window: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
@@ -363,27 +368,32 @@ def RTISI_LA(
     of the ``'fft'`` path in the backward pass; on the card the kernel
     path keeps only each launch's inputs anyway.
     """
-    if not (max_iter > 0 and alpha >= 0):
-        raise ValueError(f"need max_iter > 0 and alpha >= 0 (got {max_iter}, {alpha})")
-    _check_kwargs(stft_kwargs)
-    spec = as_tensor(spec)
-    if spec.is_complex():
-        raise ValueError("RTISI_LA expects a magnitude (real) spectrogram")
-    spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-    if spec_b3.dtype not in (torch.float32, torch.float64):
-        spec_b3 = spec_b3.to(window.dtype)
-    num_keep = (cfg.n_fft - 1) // cfg.hop_length
-    la = num_keep if look_ahead < 0 else look_ahead
-    backend = _resolve_backend(backend, cfg, window, spec_b3.dtype, spec_b3.device, precision)
-    _check_knob("chunk_rows", chunk_rows, backend)
-    _check_knob("frames_per_launch", frames_per_launch, backend)
-    x = run_tm(
-        spec_b3.transpose(-1, -2), window, alpha / (1 + alpha), cfg, look_ahead=la,
-        asymmetric_window=asymmetric_window, max_iter=max_iter,
-        verbose=gate_verbose(verbose), backend=backend, remat=remat,
-        chunk_rows=chunk_rows, frames_per_launch=frames_per_launch,
-    )
-    return restore_output(x, was_2d)
+    with span("call"):
+        with span("prep"):
+            if not (max_iter > 0 and alpha >= 0):
+                raise ValueError(
+                    f"need max_iter > 0 and alpha >= 0 (got {max_iter}, {alpha})")
+            _check_kwargs(stft_kwargs)
+            spec = as_tensor(spec)
+            if spec.is_complex():
+                raise ValueError("RTISI_LA expects a magnitude (real) spectrogram")
+            spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
+            if spec_b3.dtype not in (torch.float32, torch.float64):
+                spec_b3 = spec_b3.to(window.dtype)
+            num_keep = (cfg.n_fft - 1) // cfg.hop_length
+            la = num_keep if look_ahead < 0 else look_ahead
+            backend = _resolve_backend(backend, cfg, window, spec_b3.dtype, spec_b3.device,
+                                       precision)
+            _check_knob("chunk_rows", chunk_rows, backend)
+            _check_knob("frames_per_launch", frames_per_launch, backend)
+        x = run_tm(
+            spec_b3.transpose(-1, -2), window, alpha / (1 + alpha), cfg, look_ahead=la,
+            asymmetric_window=asymmetric_window, max_iter=max_iter,
+            verbose=gate_verbose(verbose), backend=backend, remat=remat,
+            chunk_rows=chunk_rows, frames_per_launch=frames_per_launch,
+        )
+        with span("synth"):
+            return restore_output(x, was_2d)
 
 
 rtisi_la = RTISI_LA
@@ -472,34 +482,39 @@ class RTISIStreamer:
         env = suffix[:hop].copy()
         env[env == 0] = 1.0
         suffix[suffix == 0] = 1.0
-        self._env = torch.from_numpy(env).to(**zeros)
-        self._suffix_env = torch.from_numpy(suffix).to(**zeros)
+        with host_sync(device):
+            self._env = torch.from_numpy(env).to(**zeros)
+        with host_sync(device):
+            self._suffix_env = torch.from_numpy(suffix).to(**zeros)
 
     def push(self, frame_mag):
         """Feed one magnitude frame ``(F,)`` / ``(B, F)``; returns ``(B, hop)``
         committed samples, or ``None`` while the look-ahead window fills."""
-        frame_mag = as_tensor(frame_mag)
-        if frame_mag.ndim == 1:
-            frame_mag = frame_mag[None]
-        if self.state is None:
-            self._bind(frame_mag.device)
-        if frame_mag.device != self.window.device:
-            raise ValueError(
-                f"frame on {frame_mag.device}, streamer on {self.window.device}: "
-                "push every frame from the same device"
-            )
-        frame_mag = frame_mag.to(self.dtype)
-        if not self._started:
-            # Seed the newest in-flight frame with zero phase.
-            first = fourier.inverse(frame_mag[:, None, :].to(_complex_dtype(self.dtype)),
-                                    self.cfg)
-            self.state = self.state._replace(
-                update=torch.cat([self.state.update[:, : self.la], first], dim=1))
-            self._started = True
-        self._pending.append(frame_mag)
-        if len(self._pending) < self.la + 1:
-            return None
-        return self._step(torch.stack(self._pending, dim=1))
+        with span("push"):
+            frame_mag = as_tensor(frame_mag)
+            if self.state is None:
+                with span("seed"):
+                    self._bind(frame_mag.device)
+            with span("prep"):
+                if frame_mag.ndim == 1:
+                    frame_mag = frame_mag[None]
+                if frame_mag.device != self.window.device:
+                    raise ValueError(
+                        f"frame on {frame_mag.device}, streamer on {self.window.device}: "
+                        "push every frame from the same device"
+                    )
+                frame_mag = frame_mag.to(self.dtype)
+                self._pending.append(frame_mag)
+                ready = len(self._pending) >= self.la + 1
+                target_slice = torch.stack(self._pending, dim=1) if ready else None
+            if not self._started:
+                with span("seed"):  # the newest in-flight frame with zero phase
+                    first = fourier.inverse(
+                        frame_mag[:, None, :].to(_complex_dtype(self.dtype)), self.cfg)
+                    self.state = self.state._replace(
+                        update=torch.cat([self.state.update[:, : self.la], first], dim=1))
+                    self._started = True
+            return None if target_slice is None else self._step(target_slice)
 
     def _kernel_step(self, target_slice):
         keeped, update, pre = self.state
@@ -510,9 +525,10 @@ class RTISIStreamer:
             outs.append(rtisi_fused.fused_rtisi_steps(
                 keeped[rows], update[rows], pre[rows], target_slice[rows], self._windows,
                 self.lr, self.cfg, self.max_iter))
-        com, keeped, update, pre = (torch.cat(parts, dim=1 if i == 0 else 0)
-                                    for i, parts in enumerate(zip(*outs)))
-        return RTISIState(keeped, update, pre), com[0]
+        with span("state"):  # the state rebuilt from the chunks' outputs
+            com, keeped, update, pre = (torch.cat(parts, dim=1 if i == 0 else 0)
+                                        for i, parts in enumerate(zip(*outs)))
+            return RTISIState(keeped, update, pre), com[0]
 
     def _step(self, target_slice):
         if self.backend == "kernel":
@@ -525,7 +541,8 @@ class RTISIStreamer:
         if self._warmup:
             self._warmup -= 1
             return None
-        return self._emit(committed)
+        with span("synth"):
+            return self._emit(committed)
 
     def _emit(self, committed):
         hop = self.cfg.hop_length
@@ -537,16 +554,21 @@ class RTISIStreamer:
     def flush(self):
         """Drain the look-ahead pipeline; returns the remaining samples
         ``(B, n_samples)``."""
-        if self.state is None:
-            self._bind(default_device())
-        chunks = []
-        while self._pending:
-            # Pad the target window with zero frames, as the offline call pads
-            # its target on the right.
-            padded = self._pending + [torch.zeros_like(self._pending[0])] * (
-                self.la + 1 - len(self._pending))
-            out = self._step(torch.stack(padded, dim=1))
-            if out is not None:
-                chunks.append(out)
-        chunks.append(self._ola_buf / self._suffix_env[None])
-        return torch.cat(chunks, dim=1)
+        with span("flush"):
+            if self.state is None:
+                with span("seed"):
+                    self._bind(default_device())
+            chunks = []
+            while self._pending:
+                # Pad the target window with zero frames, as the offline call
+                # pads its target on the right.
+                with span("prep"):
+                    padded = self._pending + [torch.zeros_like(self._pending[0])] * (
+                        self.la + 1 - len(self._pending))
+                    target_slice = torch.stack(padded, dim=1)
+                out = self._step(target_slice)
+                if out is not None:
+                    chunks.append(out)
+            with span("synth"):
+                chunks.append(self._ola_buf / self._suffix_env[None])
+                return torch.cat(chunks, dim=1)

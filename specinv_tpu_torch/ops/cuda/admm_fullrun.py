@@ -27,6 +27,7 @@ import torch
 
 from ...config import STFTConfig
 from ...models._kernel_driver import admm_twin
+from ...utils.profiling import span
 from . import _fullrun
 from ._fullrun import (  # noqa: F401  (supports: the kernel's config rule, read here too)
     outputs, supports, valid_count, valid_frames,
@@ -126,17 +127,19 @@ def fused_admm_run(
     with ``with_loss`` the eval sums ``[sum (|R|-tgt)^2, sum |R|^2]`` of the
     last iteration over the first ``valid_t`` frames.  ``valid_t`` (0 = all
     ``T``) also zeroes ``Y`` on the frames past it.  Return order
-    ``x[, Y][, mag][, stats]``, as in the JAX driver.
+    ``x[, Y][, mag][, stats]``, as in the JAX driver.  One ``specinv.launch``
+    span covers the dispatch.
     """
-    if x_pad.device.type == "cpu":
-        return fused_admm_run_reference(
-            x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
-            emit_state, with_mag, with_loss, valid_t,
-        )
-    _fullrun.check_config(cfg, window, n_iters, "ADMM")
-    return _fullrun.apply(_ADMMRun, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
-                          emit_state, with_mag, with_loss,
-                          valid_frames(valid_t, target.shape[-2]), _count)
+    with span("launch"):
+        if x_pad.device.type == "cpu":
+            return fused_admm_run_reference(
+                x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
+                emit_state, with_mag, with_loss, valid_t,
+            )
+        _fullrun.check_config(cfg, window, n_iters, "ADMM")
+        return _fullrun.apply(_ADMMRun, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
+                              emit_state, with_mag, with_loss,
+                              valid_frames(valid_t, target.shape[-2]), _count)
 
 
 def fused_admm_iteration(

@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from ...utils.profiling import host_sync
 from . import _build
 
 MIN_N, MAX_N = 16, 4096
@@ -41,7 +42,8 @@ def twiddles(n: int, device: torch.device, dtype: torch.dtype = torch.complex64)
     every launch wait for the host.
     """
     k = np.arange(n // 2)
-    return torch.from_numpy(np.exp(-2j * np.pi * k / n)).to(dtype).to(device)
+    with host_sync(device):
+        return torch.from_numpy(np.exp(-2j * np.pi * k / n)).to(dtype).to(device)
 
 
 def scales(n: int, normalized: bool):

@@ -26,6 +26,7 @@ import torch
 
 from ...config import STFTConfig
 from ...models._kernel_driver import gl_twin
+from ...utils.profiling import span
 from . import _fullrun
 from ._fullrun import (  # noqa: F401  (supports, UNSUPPORTED: the backend rule reads them here)
     UNSUPPORTED, outputs, supports, valid_count, valid_frames,
@@ -122,17 +123,19 @@ def fused_gl_run(
     ``with_mag`` the pre-momentum ``|S|`` of the LAST iteration ``(B, T, F)``;
     with ``with_loss`` the eval sums ``[sum (|S|-tgt)^2, sum |S|^2]`` of the
     last iteration over the first ``valid_t`` frames (0 = all).  Return order
-    ``x[, pre][, mag][, stats]``, as in the JAX driver.
+    ``x[, pre][, mag][, stats]``, as in the JAX driver.  One
+    ``specinv.launch`` span covers the dispatch.
     """
-    if x_pad.device.type == "cpu":
-        return fused_gl_run_reference(
-            x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
-            emit_state, with_mag, with_loss, valid_t,
-        )
-    _fullrun.check_config(cfg, window, n_iters, "Griffin-Lim")
-    return _fullrun.apply(_GLRun, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
-                          emit_state, with_mag, with_loss,
-                          valid_frames(valid_t, target.shape[-2]), _count)
+    with span("launch"):
+        if x_pad.device.type == "cpu":
+            return fused_gl_run_reference(
+                x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
+                emit_state, with_mag, with_loss, valid_t,
+            )
+        _fullrun.check_config(cfg, window, n_iters, "Griffin-Lim")
+        return _fullrun.apply(_GLRun, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
+                              emit_state, with_mag, with_loss,
+                              valid_frames(valid_t, target.shape[-2]), _count)
 
 
 def fused_gl_iteration(

@@ -26,6 +26,7 @@ import torch
 
 from ...config import STFTConfig
 from ...models._kernel_driver import RTISIWindows, rtisi_steps_twin
+from ...utils.profiling import span
 from . import _build, _fullrun
 from .fft import scales, twiddles
 
@@ -186,15 +187,18 @@ def fused_rtisi_steps(keeped, update, pre, target, windows: RTISIWindows, lr,
                       cfg: STFTConfig, max_iter: int):
     """Run ``k = target.shape[-2] - la`` RTISI-LA output-frame steps of
     ``max_iter`` refinements each -> ``(committed (k, B, n_fft), keeped,
-    update, pre)``; see the module docstring for the layout."""
-    if update.device.type == "cpu":
-        return fused_rtisi_steps_reference(keeped, update, pre, target, windows, lr, cfg,
-                                           max_iter)
-    if not supports(cfg, windows.window):
-        raise ValueError(
-            f"the RTISI-LA kernel needs {UNSUPPORTED} (n_fft={cfg.n_fft}, "
-            f"hop={cfg.hop_length}, onesided={cfg.onesided})"
-        )
-    if max_iter < 1:
-        raise ValueError(f"max_iter must be >= 1, got {max_iter}")
-    return _RTISISteps.apply(keeped, update, pre, target, *windows, float(lr), cfg, max_iter)
+    update, pre)``; see the module docstring for the layout.  One
+    ``specinv.launch`` span covers the dispatch."""
+    with span("launch"):
+        if update.device.type == "cpu":
+            return fused_rtisi_steps_reference(keeped, update, pre, target, windows, lr, cfg,
+                                               max_iter)
+        if not supports(cfg, windows.window):
+            raise ValueError(
+                f"the RTISI-LA kernel needs {UNSUPPORTED} (n_fft={cfg.n_fft}, "
+                f"hop={cfg.hop_length}, onesided={cfg.onesided})"
+            )
+        if max_iter < 1:
+            raise ValueError(f"max_iter must be >= 1, got {max_iter}")
+        return _RTISISteps.apply(keeped, update, pre, target, *windows, float(lr), cfg,
+                                 max_iter)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..config import STFTConfig
+from ..utils.profiling import host_sync
 
 VALID_DFT_BACKENDS = ("auto", "fft")
 # The JAX package's XLA lowerings of the DFT (its fourier.VALID_DFT_BACKENDS
@@ -98,9 +99,11 @@ def _real_ends(spec: torch.Tensor, n: int) -> torch.Tensor:
     mask = _ENDS_MASKS.get(key)
     if mask is None:
         mask = torch.ones((bins, 2), dtype=key[3], device=spec.device)
-        mask[0, 1] = 0
+        with host_sync(mask):  # an element set from the host: a blocking copy
+            mask[0, 1] = 0
         if key[1]:
-            mask[-1, 1] = 0
+            with host_sync(mask):
+                mask[-1, 1] = 0
         _ENDS_MASKS[key] = mask
     return torch.view_as_complex(torch.view_as_real(spec) * mask)
 

@@ -20,6 +20,7 @@ import torch
 
 from ..config import STFTConfig
 from ..utils import guards
+from ..utils.profiling import host_sync
 from . import fourier
 from .framing import frame, ola_envelope, overlap_add, pad_center
 
@@ -70,7 +71,9 @@ def istft(
         x = x[..., p:-p]
     if envelope is None:
         envelope = make_envelope(cfg, window, spec.shape[-2])
-        if bool((envelope == 0).any()):
+        with host_sync(envelope):  # the check reads the card's envelope back
+            zeros = bool((envelope == 0).any())
+        if zeros:
             warnings.warn(ZERO_ENVELOPE_MSG, RuntimeWarning, stacklevel=2)
     if guards.debug_checks_enabled():
         guards.check((envelope != 0).all(), ZERO_ENVELOPE_MSG)

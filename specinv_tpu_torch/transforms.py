@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from .config import as_numpy_window, canonicalize
 from .ops import dft
 from .ops import stft as stft_ops
+from .utils.profiling import host_sync
 
 
 def default_device() -> torch.device:
@@ -55,8 +56,10 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def window_tensor(window_np: np.ndarray, device, real_dtype: torch.dtype) -> torch.Tensor:
-    """Canonical numpy window -> tensor on ``device`` in the working type."""
-    w = torch.from_numpy(np.ascontiguousarray(window_np)).to(device)
+    """Canonical numpy window -> tensor on ``device`` in the working type
+    (to a card: a blocking copy, one host sync)."""
+    with host_sync(device):
+        w = torch.from_numpy(np.ascontiguousarray(window_np)).to(device)
     if w.is_complex():
         return w.to(torch.complex128 if real_dtype == torch.float64 else torch.complex64)
     return w.to(real_dtype)

@@ -24,6 +24,8 @@ import contextlib
 import torch
 from torch.utils import _pytree as pytree
 
+from .profiling import host_sync
+
 _ENABLED = False
 
 
@@ -51,7 +53,11 @@ def check(pred, msg: str, **fmt_kwargs) -> None:
     """A planted check: raise :class:`CheckError` with ``msg`` (formatted
     with ``fmt_kwargs``) when ``pred`` (a bool or a tensor) is false.  A
     no-op unless inside ``debug_checks()``: ``pred`` is not read then."""
-    if _ENABLED and not bool(pred):
+    if not _ENABLED:
+        return
+    with host_sync(pred):
+        ok = bool(pred)
+    if not ok:
         raise CheckError(msg.format(**fmt_kwargs))
 
 
@@ -64,7 +70,9 @@ def checked(fn):
         out = fn(*args, **kwargs)
         for leaf in pytree.tree_leaves(out):
             if isinstance(leaf, torch.Tensor) and (leaf.is_floating_point() or leaf.is_complex()):
-                if not bool(torch.isfinite(leaf).all()):
+                with host_sync(leaf):
+                    finite = bool(torch.isfinite(leaf).all())
+                if not finite:
                     raise CheckError(f"non-finite value in the output of "
                                      f"{getattr(fn, '__name__', fn)!r}")
         return out

@@ -3,6 +3,15 @@
 Counterpart of ``specinv_tpu/utils/profiling.py`` on ``torch.profiler``: a
 trace of the enclosed block for TensorBoard / Perfetto, named regions inside
 it, and an iteration-throughput timer.
+
+Beside them, the port's own spans and its count of host syncs.  :func:`span`
+names a stage of the port (``specinv.call``, ``.prep``, ``.seed``,
+``.loop``, ``.launch``, ``.state``, ``.synth``, ``.push``, ``.flush``) as a
+function-scope range on the profiler's clock: it records while a
+``torch.profiler`` records and costs well under a microsecond otherwise, and
+it never becomes device activity in the trace.  :func:`host_sync` wraps each
+place where the host waits for the card, adds one to :data:`host_syncs` and
+opens ``specinv.host_sync`` around the wait.
 """
 from __future__ import annotations
 
@@ -34,6 +43,51 @@ def trace(log_dir: str) -> Iterator[profile]:
 
 
 annotate = torch.profiler.record_function  # a named region inside a trace
+
+try:  # a function-scope range: no device-side twin, near free with no profiler
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:  # an older torch: spans record nothing
+    _RecordFunctionFast = None
+
+_NOTHING = contextlib.nullcontext()
+
+# Host syncs of the port on a card tensor: blocking copies between the host
+# and the card, and reads of a card value (one per :func:`host_sync`).
+host_syncs = 0
+
+
+def span(name: str):
+    """A stage of the port, ``specinv.<name>``, in the trace of a running
+    ``torch.profiler``; nested spans nest on the calling thread::
+
+        with span("prep"):
+            ...
+    """
+    if _RecordFunctionFast is None:
+        return _NOTHING
+    return _RecordFunctionFast("specinv." + name)
+
+
+def host_sync(where):
+    """Around an operation that makes the host wait for the card: counts one
+    in :data:`host_syncs` and opens ``span("host_sync")`` when ``where`` (the
+    tensor read or written, or the device copied to) is on a CUDA card, and
+    does nothing otherwise (a host value, a CPU tensor or device)::
+
+        with host_sync(window):
+            window = window.cpu()
+    """
+    if isinstance(where, torch.Tensor):
+        on_card = where.is_cuda
+    elif isinstance(where, (str, torch.device)):
+        on_card = torch.device(where).type == "cuda"
+    else:  # a host value
+        on_card = False
+    if not on_card:
+        return _NOTHING
+    global host_syncs
+    host_syncs += 1
+    return span("host_sync")
 
 
 def _on_card(out) -> bool:

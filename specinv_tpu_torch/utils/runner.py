@@ -26,6 +26,7 @@ import torch
 
 from ..metrics import get_metric
 from .collective import axis_sum
+from .profiling import host_sync
 
 StepFn = Callable[..., Tuple]  # state -> (state, output)
 
@@ -102,8 +103,14 @@ def gate_verbose(verbose) -> bool:
     return bool(verbose)
 
 
+def _read(value) -> float:
+    """A device scalar on the host (on the card: one host sync)."""
+    with host_sync(value):
+        return float(value)
+
+
 def _progress_print(i, metric_name, metric_val, loss):
-    print(f"iter {int(i) + 1}: {metric_name}={float(metric_val):.4f} loss={float(loss):.3e}")
+    print(f"iter {int(i) + 1}: {metric_name}={_read(metric_val):.4f} loss={_read(loss):.3e}")
 
 
 def _freeze(done, old, new):
@@ -123,10 +130,18 @@ class _StopRule:
     """The reference's stop rule, carried as device scalars."""
 
     def __init__(self, tol, like: torch.Tensor):
-        self.tol = torch.as_tensor(tol, dtype=like.dtype, device=like.device)
+        # anything but a tensor already there is a blocking copy to the device
+        there = isinstance(tol, torch.Tensor) and tol.device == like.device
+        with host_sync("cpu" if there else like):
+            self.tol = torch.as_tensor(tol, dtype=like.dtype, device=like.device)
         nan = torch.full((), float("nan"), dtype=like.dtype, device=like.device)
         self.prev, self.init = nan, nan
         self.done = torch.zeros((), dtype=torch.bool, device=like.device)
+
+    def stopped(self) -> bool:
+        """Whether the rule has fired (read back: one host sync on the card)."""
+        with host_sync(self.done):
+            return bool(self.done)
 
     def update(self, l2: torch.Tensor) -> None:
         l2 = l2.to(self.prev.dtype)
@@ -198,7 +213,7 @@ def iterate(
         if verbose:
             _progress_print(i, metric, metric_fn(out, target), l2)
         rule.update(l2)  # done is sticky: later updates cannot undo a stop
-        if mode == "while" and bool(rule.done):
+        if mode == "while" and rule.stopped():
             break
     return state
 
@@ -248,7 +263,7 @@ def iterate_segmented(
             _progress_print((k + 1) * eva_iter - 1, metric, metric_fn(out, target), l2)
         state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
         rule.update(l2)
-        if mode == "while" and bool(rule.done):
+        if mode == "while" and rule.stopped():
             return state
     if tail_fn is not None and max_iter % eva_iter:
         new_state, _ = tail_fn(state)
