@@ -69,7 +69,8 @@ extern "C" {
 // One ADMM iteration: x_in -> x_out (distinct buffers), Y updated in place.
 // mag and stats may be null; stats gets per-frame partial sums of the
 // pre-update |R| over the first valid_t frames.  A null inv_env leaves the
-// raw OLA.
+// raw OLA.  The frame launch runs on the plan (fpb, threads, smem) of
+// _fullrun.frame_plan.
 int specinv_admm_iteration(const float* x_in, float* x_out, float2* y,
                            const float* target, const float* window,
                            const double2* tw, const float* inv_env,
@@ -77,11 +78,12 @@ int specinv_admm_iteration(const float* x_in, float* x_out, float2* y,
                            int T, int n, int log2n, int hop, int n_bins,
                            int lp, int onesided, int p_amt, int e,
                            int pad_mode, float rho, float fscale, float iscale,
-                           int valid_t, cudaStream_t stream) {
+                           int valid_t, int fpb, int threads, int smem,
+                           cudaStream_t stream) {
   return specinv::run_iteration(
       x_in, x_out, y, target, window, tw, inv_env, frames, mag, stats, B, T, n,
       log2n, hop, n_bins, lp, onesided, p_amt, e, pad_mode, fscale, iscale,
-      valid_t, ADMMMiddle{rho}, stream);
+      valid_t, fpb, threads, smem, ADMMMiddle{rho}, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
 // The iteration engine shared by the whole-run kernels (gl_fullrun.cu,
 // admm_fullrun.cu): one iteration is a frame launch and an OLA launch.
 //
-// * frame_kernel<Middle, ONESIDED>: n/16 threads per frame, one frame per
-//   block, or as many as make a whole warp below n_fft 512
-//   (rfft::frame_launch).  Each frame is transformed as a half-length
-//   complex FFT in FP64 (rfft.cuh): the first radix-8 stage reads the
-//   windowed frame straight from x_pad, packed as z[m] = x[2m] + i
-//   x[2m+1]; after the forward stages one pair pass over
+// * frame_kernel<Middle, ONESIDED, MANY>: n/16 threads per frame, on the
+//   plan the wrapper chose (rfft.cuh): one frame per block, or as many as
+//   make a whole warp below n_fft 512 (rfft::frame_launch), or (MANY) twice
+//   that, in place (rfft::frame_launch's in_place).  Each frame is
+//   transformed as a half-length complex FFT in FP64 (rfft.cuh): the first
+//   radix-8 stage reads the windowed frame straight from x_pad, packed as
+//   z[m] = x[2m] + i x[2m+1]; after the forward stages one pair pass over
 //   the bin pairs (k, h - k), h = n/2, does everything between the two
 //   transforms in registers: the split post-pass, the forward scale, the
 //   eval output on the last iteration of an eval segment (the magnitude
@@ -17,7 +18,8 @@
 //   one writes the windowed frame to a (B, T, n_fft) scratch.  The state is
 //   stored in natural bin order as complex64, onesided (bins 0 .. h) or
 //   with all n bins; a thread loads the operands of all its pairs (state,
-//   target and split twiddles) at once, one round trip to device memory.
+//   target and split twiddles) at once, one round trip to device memory
+//   (MANY: in two groups, from L2).
 // * ola_kernel: one thread per output sample.  It gathers its at most
 //   ceil(n_fft/hop) frame terms in ascending frame order (no atomics, so the
 //   result is deterministic), multiplies by inv_env and writes the other
@@ -50,12 +52,18 @@
 // barriers per frame (S = ceil(log2(n/2) / 3) stages: 8 at n_fft 2048,
 // against about 25 for 11 radix-2 stages and a permutation each way), reads
 // the frame from device memory in the first stage and writes it from the
-// last.  At the seq shape (25843 frames, many waves) throughput counts: each
-// plane is read and written once (the state plane 212 MB, the target 106
-// MB, x_pad 53 MB, the frame scratch 212 MB: about 0.24 ms at 3.35 TB/s),
-// and what holds the launch above that is residency: at n_fft 2048 the
-// registers and shared memory of an FP64 frame let an SM hold four frames,
-// too few to hide a frame's latency.
+// last.  Launches of many waves (64 clips: 27584 frames; the seq path's
+// 25843) take the many-wave plan of rfft.cuh: two frames a block in place,
+// six frames an SM at n_fft 2048 against four.  Each plane is read and
+// written once (at 27584 frames the state plane 226 MB, the target 113 MB,
+// x_pad 57 MB, the frame scratch 226 MB: about 0.25 ms at 3.35 TB/s), and
+// what holds the launch above that (0.51-0.56 ms) is the SM's shared-memory
+// and L1 data path: every stage loads and stores each point once in shared
+// memory, beside the twiddle loads and the frame's global loads and stores.
+// More frames an SM hide less than they add there: at 64 registers a thread
+// (eight frames) the stages spill and run slower than four frames.  The
+// pair pass loads its operands in two groups, from rows that a bulk L2
+// prefetch at the kernel's start has fetched while the forward stages ran.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,6 +115,18 @@ struct FrameOut {
   }
 };
 
+// The 16-byte chunks of [p, p + bytes) fetched into L2 by one bulk prefetch,
+// which holds no registers.
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
+  const size_t a = (reinterpret_cast<size_t>(p) + 15) & ~size_t{15};
+  const size_t b = (reinterpret_cast<size_t>(p) + bytes) & ~size_t{15};
+  if (b > a) {
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(a),
+                 "r"(static_cast<unsigned>(b - a))
+                 : "memory");
+  }
+}
+
 // The bins of pair k (0 <= k <= h/2) and whether each is its own: k and
 // h - k, and with all n bins stored n - k and h + k.  At k = 0 the pair is
 // DC and Nyquist (n - 0 and h + 0 repeat them); at k = h/2 it is one bin
@@ -130,8 +150,11 @@ struct PairBins {
   }
 };
 
-template <class Middle, bool ONESIDED>
-__global__ void __launch_bounds__(256) frame_kernel(
+// MANY: the many-wave plan (rfft.cuh).  Its bound of 80 registers a thread
+// lets an SM hold three blocks of 256 threads (six frames at n_fft 2048);
+// at 64, for four, the stages spill and run slower than the one-wave plan.
+template <class Middle, bool ONESIDED, bool MANY>
+__global__ void __launch_bounds__(MANY ? 768 : 256, 1) frame_kernel(
     const float* __restrict__ x_pad,     // (B, lp)
     float2* __restrict__ state,          // (B, T, F) state, updated in place
     const float* __restrict__ target,    // (B, T, F)
@@ -147,9 +170,9 @@ __global__ void __launch_bounds__(256) frame_kernel(
   __shared__ float red[2][32];
   const int log2h = log2n - 1, h = 1 << log2h, n = 2 * h;
   const int tpf = rfft::frame_threads(log2h), hp = rfft::padded(h);
-  const int fpb = rfft::frames_per_block(log2h);
+  const int fpb = (MANY ? 2 : 1) * rfft::frames_per_block(log2h);
   double2* tw_s = smem_points;
-  double2* buf = tw_s + h;  // frame f: buf + 2 f hp, two buffers
+  double2* buf = tw_s + h;  // frame f: buf + 2 f hp, two buffers (MANY: buf + f hp, one)
   const int row0 = blockIdx.x * fpb;
   const int nf = min(fpb, rows - row0);  // frames of this block
   // this thread's frame and its lane in the pair pass
@@ -158,35 +181,58 @@ __global__ void __launch_bounds__(256) frame_kernel(
   const int row = row0 + f;
   const int t = row % T;
   const size_t plane = static_cast<size_t>(row) * n_bins;
+  const FrameIn frame_in{x_pad, window, row0, T, hop, lp};
+  const rfft::FrameSync frame_sync{tpf};
 
-  rfft::TwiddleCopy twc;
-  twc.load(tw, h);  // stored after the first stage, which reads no twiddle
-
-  // the forward transform; the spectrum lands in the first buffer when the
-  // stage count is odd, else in the second
-  const int odd = rfft::stages(log2h) & 1;
-  double2* spec = buf + (odd ? 0 : hp);
-  rfft::fft_from(FrameIn{x_pad, window, row0, T, hop, lp}, buf, buf + hp, 2 * hp, tw_s, log2h,
-                 nf, rfft::Store{spec, 2 * hp}, [&]() { twc.store(tw_s, h); });
-  __syncthreads();
+  // the forward transform; the spectrum of frame f lands in z
+  double2* z;
+  double2* spec = buf;
+  if constexpr (MANY) {
+    z = buf + f * hp;
+    if (live && l == 0) {  // the pair pass's rows, into L2 while the forward stages run
+      prefetch_l2(state + plane, sizeof(float2) * n_bins);
+      prefetch_l2(target + plane, sizeof(float) * n_bins);
+    }
+    rfft::copy_twiddles(tw_s, tw, h);  // waited for after the first stage, which reads none
+    rfft::fft_frame<false, true>(frame_in, z, tw_s, log2h, f, l, live, rfft::FrameStore{z},
+                                 frame_sync, [&]() {
+                                   rfft::wait_copies();
+                                   __syncthreads();
+                                 });
+    frame_sync();
+  } else {
+    rfft::TwiddleCopy twc;
+    twc.load(tw, h);  // stored after the first stage, which reads no twiddle
+    // the spectrum lands in the first buffer when the stage count is odd,
+    // else in the second
+    spec = buf + (rfft::stages(log2h) & 1 ? 0 : hp);
+    z = spec + 2 * f * hp;
+    rfft::fft_from(frame_in, buf, buf + hp, 2 * hp, tw_s, log2h, nf, rfft::Store{spec, 2 * hp},
+                   [&]() { twc.store(tw_s, h); });
+    __syncthreads();
+  }
 
   // The pair pass: split post-pass, scale, eval output, Middle, split
   // pre-pass, in place (the thread of pair k alone reads and writes its
-  // two points).  The state, target and split twiddles of all its pairs are
-  // loaded first (one round trip).
+  // two points).  The state, target and split twiddles of a group of its
+  // pairs are loaded first (one round trip a group): all of them, or
+  // (MANY) three and then two, which the register budget holds.
+  constexpr int kGroup = MANY ? 3 : rfft::kPairs;
   float l0 = 0.0f, l1 = 0.0f;
   const bool valid = t < valid_t;
   const bool in_sums = stats != nullptr && valid;
   if (live) {
+#pragma unroll
+  for (int i0 = 0; i0 < rfft::kPairs; i0 += kGroup) {
     float2 st[rfft::kPairs][PB::count];
     float tg[rfft::kPairs][PB::count];
     double2 wk[rfft::kPairs];
 #pragma unroll
-    for (int i = 0; i < rfft::kPairs; ++i) {
+    for (int i = i0; i < i0 + kGroup && i < rfft::kPairs; ++i) {
       const int k = l + i * tpf;
       if (k <= h / 2) {
         const PB pb(k, h);
-        wk[i] = __ldg(tw + k);
+        if constexpr (!MANY) wk[i] = __ldg(tw + k);  // MANY: read where used, from tw_s
 #pragma unroll
         for (int j = 0; j < PB::count; ++j) {
           if (pb.own[j]) {
@@ -196,15 +242,15 @@ __global__ void __launch_bounds__(256) frame_kernel(
         }
       }
     }
-    double2* z = spec + 2 * f * hp;
 #pragma unroll
-    for (int i = 0; i < rfft::kPairs; ++i) {
+    for (int i = i0; i < i0 + kGroup && i < rfft::kPairs; ++i) {
       const int k = l + i * tpf;
       if (k <= h / 2) {
         const PB pb(k, h);
         const int kc = k == 0 ? 0 : h - k;
         double2 zk, zc;
-        rfft::split_forward(z[rfft::at(k)], z[rfft::at(kc)], wk[i], zk, zc);
+        const double2 w = MANY ? tw_s[rfft::swizzled(k)] : wk[i];  // the same table, copied
+        rfft::split_forward(z[rfft::at(k)], z[rfft::at(kc)], w, zk, zc);
         // Bins rounded to float32, then rounded products (__fmul_rn is never
         // fused into an FMA): where the eval branch below is skipped, the
         // compiler could otherwise fold the scaling into the middle's first
@@ -245,11 +291,12 @@ __global__ void __launch_bounds__(256) frame_kernel(
           yk.y = 0.0f;
           yc.y = 0.0f;
         }
-        rfft::split_inverse(make_double2(yk.x, yk.y), make_double2(yc.x, yc.y), wk[i], zk, zc);
+        rfft::split_inverse(make_double2(yk.x, yk.y), make_double2(yc.x, yc.y), w, zk, zc);
         z[rfft::at(k)] = zk;
         if (k != 0 && k != h / 2) z[rfft::at(kc)] = zc;
       }
     }
+  }
   }
 
   // per-frame eval sums: the frame's lanes of a warp by shuffles, then (a
@@ -267,7 +314,11 @@ __global__ void __launch_bounds__(256) frame_kernel(
       red[1][threadIdx.x >> 5] = l1;
     }
   }
-  __syncthreads();
+  if constexpr (MANY) {
+    frame_sync();
+  } else {
+    __syncthreads();
+  }
   if (stats != nullptr && tpf > 32 && live && l == 0) {
     float a = 0.0f, c = 0.0f;
     for (int w = threadIdx.x >> 5; w < (threadIdx.x + tpf) >> 5; ++w) {
@@ -279,8 +330,14 @@ __global__ void __launch_bounds__(256) frame_kernel(
   }
 
   // the inverse transform; its last stage writes the windowed frames
-  rfft::fft_from(rfft::Load{spec, 2 * hp}, spec == buf ? buf + hp : buf, spec, 2 * hp, tw_s,
-                 log2h, nf, FrameOut{frames + static_cast<size_t>(row0) * n, window, iscale, n});
+  const FrameOut frame_out{frames + static_cast<size_t>(row0) * n, window, iscale, n};
+  if constexpr (MANY) {
+    rfft::fft_frame<true, false>(rfft::FrameLoad{z}, z, tw_s, log2h, f, l, live, frame_out,
+                                 frame_sync, frame_sync);
+  } else {
+    rfft::fft_from(rfft::Load{spec, 2 * hp}, spec == buf ? buf + hp : buf, spec, 2 * hp, tw_s,
+                   log2h, nf, frame_out);
+  }
 }
 
 __global__ void ola_kernel(const float* __restrict__ frames,   // (B, T, n)
@@ -321,8 +378,9 @@ __global__ void ola_kernel(const float* __restrict__ frames,   // (B, T, n)
   x_out[idx] = inv_env != nullptr ? acc * inv_env[src] : acc;
 }
 
-// One iteration: x_in -> x_out (distinct buffers), state updated in place.
-// mag and stats may be null.  Returns the first launch error (0 if none).
+// One iteration: x_in -> x_out (distinct buffers), state updated in place,
+// the frame launch on the plan (fpb, threads, smem).  mag and stats may be
+// null.  Returns the first launch error (0 if none).
 template <class Middle>
 int run_iteration(const float* x_in, float* x_out, float2* state,
                   const float* target, const float* window, const double2* tw,
@@ -330,16 +388,25 @@ int run_iteration(const float* x_in, float* x_out, float2* state,
                   float* stats, int B, int T, int n, int log2n, int hop,
                   int n_bins, int lp, int onesided, int p_amt, int e,
                   int pad_mode, float fscale, float iscale, int valid_t,
-                  Middle middle, cudaStream_t stream) {
-  if (n != 1 << log2n || n_bins != (onesided ? n / 2 + 1 : n)) {
+                  int fpb, int threads, int smem, Middle middle, cudaStream_t stream) {
+  if (log2n < 4 || log2n > 12 || n != 1 << log2n || n_bins != (onesided ? n / 2 + 1 : n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rows = B * T;
-  auto* kernel = onesided ? frame_kernel<Middle, true> : frame_kernel<Middle, false>;
+  // the plan the wrapper chose (ops/cuda/_fullrun.frame_plan): the one-wave
+  // layout of rfft.cuh or the many-wave one, anything else refused
+  const int rows = B * T, log2h = log2n - 1;
+  const bool in_place = fpb != rfft::frames_per_block(log2h);
+  auto* kernel = in_place ? (onesided ? frame_kernel<Middle, true, true>
+                                      : frame_kernel<Middle, false, true>)
+                          : (onesided ? frame_kernel<Middle, true, false>
+                                      : frame_kernel<Middle, false, false>);
   rfft::FrameLaunch fl;
-  cudaError_t err = rfft::frame_launch(kernel, log2n - 1, &fl);
+  cudaError_t err = rfft::frame_launch(kernel, log2h, &fl, in_place);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(rows + fl.fpb - 1) / fl.fpb, fl.threads, fl.smem, stream>>>(
+  if (fl.fpb != fpb || fl.threads != threads || fl.smem != static_cast<size_t>(smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<(rows + fpb - 1) / fpb, threads, fl.smem, stream>>>(
       x_in, state, target, window, tw, frames, mag, stats, rows, T, log2n, hop, n_bins, lp,
       fscale, iscale, valid_t, middle);
   err = cudaGetLastError();

@@ -68,18 +68,20 @@ extern "C" {
 
 // One Griffin-Lim iteration: x_in -> x_out (distinct buffers), pre updated
 // in place.  mag and stats may be null; stats gets per-frame partial sums
-// over the first valid_t frames.  A null inv_env leaves the raw OLA.
+// over the first valid_t frames.  A null inv_env leaves the raw OLA.  The
+// frame launch runs on the plan (fpb, threads, smem) of _fullrun.frame_plan.
 int specinv_gl_iteration(const float* x_in, float* x_out, float2* pre,
                          const float* target, const float* window,
                          const double2* tw, const float* inv_env, float* frames,
                          float* mag, float* stats, int B, int T, int n,
                          int log2n, int hop, int n_bins, int lp, int onesided,
                          int p_amt, int e, int pad_mode, float lr, float fscale,
-                         float iscale, int valid_t, cudaStream_t stream) {
+                         float iscale, int valid_t, int fpb, int threads, int smem,
+                         cudaStream_t stream) {
   return specinv::run_iteration(
       x_in, x_out, pre, target, window, tw, inv_env, frames, mag, stats, B, T,
       n, log2n, hop, n_bins, lp, onesided, p_amt, e, pad_mode, fscale, iscale,
-      valid_t, GLMiddle{lr}, stream);
+      valid_t, fpb, threads, smem, GLMiddle{lr}, stream);
 }
 
 }  // extern "C"

@@ -319,11 +319,39 @@ __device__ __forceinline__ void split_inverse(double2 yk, double2 yc, double2 w,
 
 // --- A launch of frames (A, B, C) -------------------------------------------
 //
-// Each frame of n = 2h points gets h/8 threads, one radix-8 butterfly each
-// per stage; a block holds one frame, or as many as make a whole warp below
-// h = 256 (frames_per_block).  The pair pass gives thread l of a frame the
-// pairs k = l + i h/8, i < kPairs.  Shared memory: the twiddle table (h
-// points), then per frame two buffers of padded(h) points.
+// Each frame of n = 2h points gets h/8 threads, 8 points each per stage (one
+// radix-8 butterfly, or two radix-4 or four radix-2 ones).  The pair pass
+// gives thread l of a frame the pairs k = l + i h/8, i < kPairs.  Two plans:
+//
+// * one wave (frame_launch; B always, A and C on few frames): a block holds
+//   one frame, or as many as make a whole warp below h = 256
+//   (frames_per_block), and shared memory holds the twiddle table (h points),
+//   then per frame two buffers of padded(h) points, the ping-pong of fft_from.
+//   A frame is transformed at the latency of its stages, which is what a
+//   launch of less than one wave costs.
+// * many waves (frame_launch in place; A and C up to h = 1024): twice the
+//   frames per block in the same shared memory, one twiddle table for them
+//   all (copied with cp.async and swizzled) and one buffer per frame, each
+//   stage of fft_frame reading its points into registers, waiting, then
+//   overwriting them.  At n_fft 2048 a block of one frame takes 53,248 B, so
+//   an SM holds four frames (16 warps); a block of two takes 53,248 B too,
+//   and the kernel's bound of 80 registers a thread (at 64, for four blocks,
+//   its stages spill) leaves an SM three: six frames, 24 warps.  Such a
+//   launch is bound less by a frame's latency than by the SM's shared-memory
+//   and L1 data path, which the stages' loads and stores, the twiddle loads
+//   and the frame's global loads all cross: the swizzled table takes the
+//   twiddle loads' bank conflicts off it, and an L2 prefetch of the state
+//   and target rows at the start (fullrun.cuh) spreads the device-memory
+//   reads over the forward stages.
+//
+// The wrapper chooses (ops/cuda/_fullrun.frame_plan, from the frames of the
+// launch and n_fft alone): the one-wave plan while the frames fit in one wave
+// of one-wave blocks (132 SMs times the blocks an SM's 228 KB of shared memory
+// holds: 528 frames at n_fft 2048) or n_fft is 4096 (where a many-wave block
+// of 512 threads leaves an SM one block, no more frames), else the many-wave
+// one; the kernels check that the plan they are handed is one of the two.
+// Each point of a frame goes through the same operations in either plan, so
+// both give the same bits.
 
 constexpr int kPairs = 5;          // ceil((h/2 + 1) / (h/8))
 constexpr int kTwiddleLoads = 8;  // twiddle-table points per thread: at most h / (h/8)
@@ -363,21 +391,200 @@ struct FrameLaunch {
   size_t smem;
 };
 
-// The launch of `kernel` over frames of h = 2^log2h points (8 <= h <=
-// 2048, cudaErrorInvalidValue otherwise); lets the kernel take shared
-// memory above 48 KB.
+// The launch of `kernel` over frames of h = 2^log2h points, on the one-wave
+// plan (8 <= h <= 2048) or, in_place, on the many-wave plan (8 <= h <=
+// 1024): twice the frames per block, one buffer each, so the same shared
+// memory (cudaErrorInvalidValue outside those sizes); lets the kernel take
+// shared memory above 48 KB.
 template <class Kernel>
-inline cudaError_t frame_launch(Kernel* kernel, int log2h, FrameLaunch* launch) {
-  if (log2h < 3 || log2h > 11) return cudaErrorInvalidValue;
+inline cudaError_t frame_launch(Kernel* kernel, int log2h, FrameLaunch* launch,
+                                bool in_place = false) {
+  if (log2h < 3 || log2h > (in_place ? 10 : 11)) return cudaErrorInvalidValue;
   const int h = 1 << log2h;
-  launch->fpb = frames_per_block(log2h);
+  const int buffers = in_place ? 1 : 2;
+  launch->fpb = (in_place ? 2 : 1) * frames_per_block(log2h);
   launch->threads = launch->fpb * frame_threads(log2h);
-  launch->smem = sizeof(double2) * (h + 2 * static_cast<size_t>(launch->fpb) * padded(h));
+  launch->smem = sizeof(double2) * (h + buffers * static_cast<size_t>(launch->fpb) * padded(h));
   if (launch->smem > 48 * 1024) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(launch->smem));
   }
   return cudaSuccess;
+}
+
+// --- One frame in place (the many-wave plan) --------------------------------
+//
+// Thread l < h/8 of frame f works on that frame alone, in its one buffer z:
+// stage by stage it reads its 8 points (butterflies j = l + m h/8), twiddles
+// them and runs their DFTs in registers, waits until every thread of the
+// frame has read (wait()), then stores them where the Stockham order puts
+// them.  A butterfly's operations are those of stage(), so the outputs are
+// the same bits.  Threads of a frame past the launch's last (live false)
+// take every wait and touch no memory.
+
+// The threads of a frame wait for each other: the block, whose two frames
+// then go in step (named barriers, one a frame, measured no faster), or the
+// warp where a warp holds several frames (h < 256).
+struct FrameSync {
+  int threads;  // of a frame
+  __device__ __forceinline__ void operator()() const {
+    if (threads < 32) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+  }
+};
+
+// A frame's buffer: point i read, or stored, at its skewed position.
+struct FrameLoad {
+  const double2* z;
+  __device__ __forceinline__ double2 operator()(int, int i) const { return z[at(i)]; }
+};
+
+struct FrameStore {
+  double2* z;
+  __device__ __forceinline__ void operator()(int, int i, double2 v) const { z[at(i)] = v; }
+};
+
+// Where the copied table keeps tw[i]: the low three bits of i XORed with the
+// next two groups of three, a permutation within each aligned group of
+// eight.  A stage reads tw[s k] over 8 consecutive k in a quarter-warp, for
+// a stride s from 1 to 64; unswizzled, strides of 2 and more put those 16-byte
+// reads on a quarter to a half of the banks (2- to 8-way conflicts), and
+// swizzled on all of them.
+__host__ __device__ __forceinline__ int swizzled(int i) {
+  return i ^ (((i >> 3) ^ (i >> 6)) & 7);
+}
+
+// exp(-2 pi i m / h), m < h, from the swizzled copy of the n/2-entry table.
+__device__ __forceinline__ double2 twiddle_swizzled(const double2* tw_s, int m, int h) {
+  const int j = 2 * m;
+  if (j < h) return tw_s[swizzled(j)];
+  const double2 t = tw_s[swizzled(j - h)];
+  return make_double2(-t.x, -t.y);
+}
+
+// The twiddle table (h points) copied from device memory to shared memory,
+// swizzled, by the block's threads with cp.async, which holds no registers
+// while the first stage runs; wait_copies() before anyone reads it.
+__device__ __forceinline__ void copy_twiddles(double2* tw_s, const double2* __restrict__ tw,
+                                              int h) {
+  for (int i = threadIdx.x; i < h; i += blockDim.x) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(tw_s + swizzled(i)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(tw + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// One Stockham stage of radix R of frame f (thread l) as described above:
+// points from in(f, i), wait(), outputs to out(f, i, value).
+template <int R, class In, class Out, class Wait>
+__device__ __forceinline__ void frame_stage(const In& in, const double2* tw_s, int log2h,
+                                            int log2ns, int f, int l, bool live, const Out& out,
+                                            const Wait& wait) {
+  constexpr int log2r = R == 8 ? 3 : (R == 4 ? 2 : 1);
+  constexpr int M = 8 / R;  // butterflies per thread: h/R over h/8 threads
+  const int log2nb = log2h - log2r;
+  const int ns = 1 << log2ns;
+  const int tstep = log2h - log2ns - log2r;
+  const int tpf = frame_threads(log2h);
+  double2 v[M][R];
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int j = l + m * tpf;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[m][r] = in(f, j + (r << log2nb));
+      const int k = j & (ns - 1);
+      if (ns > 1) {
+        double2 wr[R];
+        powers<R>(twiddle_swizzled(tw_s, k << tstep, 1 << log2h), wr);
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[m][r] = mul(v[m][r], wr[r]);
+      }
+      dft<R>(v[m]);
+    }
+  }
+  wait();
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int j = l + m * tpf;
+      const int k = j & (ns - 1);
+      const int base = ((j - k) << log2r) + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) out(f, base + (r << log2ns), v[m][r]);
+    }
+  }
+}
+
+template <class In, class Out, class Wait>
+__device__ __forceinline__ void run_frame_stage(int log2r, const In& in, const double2* tw_s,
+                                                int log2h, int log2ns, int f, int l, bool live,
+                                                const Out& out, const Wait& wait) {
+  if (log2r == 3) {
+    frame_stage<8>(in, tw_s, log2h, log2ns, f, l, live, out, wait);
+  } else if (log2r == 2) {
+    frame_stage<4>(in, tw_s, log2h, log2ns, f, l, live, out, wait);
+  } else {
+    frame_stage<2>(in, tw_s, log2h, log2ns, f, l, live, out, wait);
+  }
+}
+
+// Forward h-point complex FFT (unscaled) of frame f in its buffer z, the
+// twiddles from tw_s (the swizzled table of copy_twiddles), in the stages of
+// fft_from: the first stage reads first(f, i) (z itself if FROM_Z) and
+// stores to z, every later stage reads z and stores to z, and the last one
+// hands its outputs to last(f, i, value) (into z if TO_Z).  A stage that
+// reads and stores z waits between the two.  after_first() runs right after
+// the first stage, by every thread, and orders its stores before the next
+// stage's loads (the forward waits there for the twiddle table's copy and
+// the whole block); after each later stage but the last the frame waits;
+// the caller waits after the last.  The first stage reads no twiddle.
+template <bool FROM_Z, bool TO_Z, class First, class Last, class Wait, class Hook>
+__device__ inline void fft_frame(const First& first, double2* z, const double2* tw_s, int log2h,
+                                 int f, int l, bool live, const Last& last, const Wait& wait,
+                                 const Hook& after_first) {
+  const FrameLoad read{z};
+  const FrameStore keep{z};
+  int bits = log2h, log2r = bits >= 3 ? 3 : bits;
+  if (log2r == bits) {
+    if constexpr (FROM_Z && TO_Z) {
+      run_frame_stage(log2r, first, tw_s, log2h, 0, f, l, live, last, wait);
+    } else {
+      run_frame_stage(log2r, first, tw_s, log2h, 0, f, l, live, last, NoHook{});
+    }
+    after_first();
+    return;
+  }
+  if constexpr (FROM_Z) {
+    run_frame_stage(log2r, first, tw_s, log2h, 0, f, l, live, keep, wait);
+  } else {
+    run_frame_stage(log2r, first, tw_s, log2h, 0, f, l, live, keep, NoHook{});
+  }
+  after_first();
+  int log2ns = log2r;
+  bits -= log2r;
+  for (;;) {
+    log2r = bits >= 3 ? 3 : bits;
+    if (log2r == bits) {
+      if constexpr (TO_Z) {
+        run_frame_stage(log2r, read, tw_s, log2h, log2ns, f, l, live, last, wait);
+      } else {
+        run_frame_stage(log2r, read, tw_s, log2h, log2ns, f, l, live, last, NoHook{});
+      }
+      return;
+    }
+    run_frame_stage(log2r, read, tw_s, log2h, log2ns, f, l, live, keep, wait);
+    wait();
+    bits -= log2r;
+    log2ns += log2r;
+  }
 }
 
 }  // namespace rfft

@@ -37,6 +37,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,           # B T n log2n hop n_bins lp onesided
         _I, _I, _I,                               # p_amt e pad_mode
         _F, _F, _F, _I,                           # lr fscale iscale valid_t
+        _I, _I, _I,                               # the plan: fpb threads smem
         _P,                                       # stream
     ],
     "specinv_admm_iteration": [
@@ -44,6 +45,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,           # B T n log2n hop n_bins lp onesided
         _I, _I, _I,                               # p_amt e pad_mode
         _F, _F, _F, _I,                           # rho fscale iscale valid_t
+        _I, _I, _I,                               # the plan: fpb threads smem
         _P,                                       # stream
     ],
     "specinv_gl_dft_iteration": [

@@ -11,9 +11,12 @@ natural bin order, and return ``x[, state][, mag][, stats]``.
 
 Below, ``valid`` is always an explicit frame count in ``[0, T]`` (0: no
 frame is valid), and an ``inv_env`` of None means the raw overlap-add: no
-envelope and no edge re-pad (:func:`geometry`).
+envelope and no edge re-pad (:func:`geometry`).  :func:`frame_plan` lays out
+each frame launch (``csrc/rfft.cuh`` describes the two plans).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +28,50 @@ from .fft import scales, supported_size, twiddles
 PAD_CODES = {"constant": 0, "reflect": 1, "replicate": 2, "circular": 3}
 
 UNSUPPORTED = "n_fft a power of two in [16, 4096], 0 < hop <= n_fft and a real window"
+
+
+# An H100's SMs, the shared memory of one SM and what the card keeps of it
+# per block: the one-wave plan's blocks that one wave holds.
+SMS = 132
+SM_SHARED_BYTES = 233472  # 228 KB
+BLOCK_RESERVED_BYTES = 1024
+POINT_BYTES = 16  # an FP64 complex point
+# The largest n_fft of the many-wave plan: at 4096 its blocks of 512 threads,
+# at the kernel's bound of 80 registers a thread, leave an SM one block, two
+# frames, as many as the one-wave plan holds.
+MANY_WAVE_MAX_N_FFT = 2048
+
+
+class FramePlan(NamedTuple):
+    """How a frame launch lays out its blocks."""
+
+    frames_per_block: int
+    threads: int      # per block: n_fft / 16 per frame
+    smem: int         # dynamic shared-memory bytes per block
+    many_wave: bool   # one buffer per frame, twice the frames (else two buffers)
+
+
+def frame_plan(rows: int, n_fft: int) -> FramePlan:
+    """The layout of a frame launch of kernel A or C over ``rows`` frames
+    (``B * T``) of ``n_fft`` (a power of two in [16, 4096]).
+
+    The one-wave plan: a block holds one frame, or a warp's worth below
+    n_fft 512, with the twiddle table (``n_fft / 2`` FP64 points) and two
+    buffers of ``n_fft / 2`` points and one padding point per eight per
+    frame in shared memory.  Where ``rows`` would fill more than one wave of
+    such blocks (the blocks an SM's shared memory holds, on every SM) and
+    n_fft is at most :data:`MANY_WAVE_MAX_N_FFT`, the many-wave plan: twice
+    the frames per block, one buffer each, in the same shared memory, so
+    more frames in flight on each SM.
+    """
+    h = n_fft // 2
+    tpf = h // 8  # threads per frame
+    fpb = max(1, 32 // tpf)
+    smem = POINT_BYTES * (h + 2 * fpb * (h + h // 8))
+    wave = SMS * fpb * (SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES))
+    if rows < wave or n_fft > MANY_WAVE_MAX_N_FFT:
+        return FramePlan(fpb, fpb * tpf, smem, False)
+    return FramePlan(2 * fpb, 2 * fpb * tpf, smem, True)
 
 
 def supports(cfg: STFTConfig, window) -> bool:
@@ -92,8 +139,9 @@ def eval_sums(mag, target, valid: int):
 def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
            cfg: STFTConfig, n_iters, with_mag, with_loss, valid):
     """Queue ``n_iters`` iterations of the C entry point ``entry`` on the
-    current stream, calling ``count()`` before each; returns
-    ``(x, state, mag, stats)``."""
+    current stream, calling ``count(many_wave)`` before each (whether its
+    frame launch takes the many-wave plan); returns ``(x, state, mag,
+    stats)``."""
     B, T, n_bins = target.shape
     n, hop = cfg.n_fft, cfg.hop_length
     geo = geometry(cfg, T, inv_env)
@@ -126,10 +174,11 @@ def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
     fscale, iscale = scales(n, cfg.normalized)
     tw = twiddles(n, dev, torch.complex128)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = frame_plan(B * T, n)
     fn = getattr(_build.library(), entry)
     for it in range(n_iters):
         last = it == n_iters - 1
-        count()
+        count(plan.many_wave)
         code = fn(
             x_a.data_ptr(), x_b.data_ptr(), state.data_ptr(), target.data_ptr(),
             window.data_ptr(), tw.data_ptr(),
@@ -138,7 +187,8 @@ def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
             partial.data_ptr() if (with_loss and last) else None,
             B, T, n, n.bit_length() - 1, hop, n_bins, geo.lp, int(cfg.onesided),
             geo.p_amt, geo.e, PAD_CODES[cfg.pad_mode],
-            float(scalar), fscale, iscale, valid, stream,
+            float(scalar), fscale, iscale, valid, plan.frames_per_block, plan.threads,
+            plan.smem, stream,
         )
         _build.check(code, entry)
         x_a, x_b = x_b, x_a

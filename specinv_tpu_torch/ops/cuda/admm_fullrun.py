@@ -34,19 +34,23 @@ from ._fullrun import (  # noqa: F401  (supports: the kernel's config rule, read
 )
 
 # Kernel iterations launched (one frame + one OLA launch each) by the whole
-# run, and by the raw per-iteration dispatch.
+# run, and by the raw per-iteration dispatch; and of both, those whose frame
+# launch took the many-wave plan (_fullrun.frame_plan).
 launches = 0
 iteration_launches = 0
+many_wave_launches = 0
 
 
-def _count():
-    global launches
+def _count(many_wave: bool):
+    global launches, many_wave_launches
     launches += 1
+    many_wave_launches += many_wave
 
 
-def _count_iteration():
-    global iteration_launches
+def _count_iteration(many_wave: bool):
+    global iteration_launches, many_wave_launches
     iteration_launches += 1
+    many_wave_launches += many_wave
 
 
 def _plain(x_pad, Y, target, window, inv_env, rho, cfg: STFTConfig, n_iters: int,
@@ -84,8 +88,8 @@ def fused_admm_iteration_reference(
 
 def _launch(x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag, with_loss,
             valid, count):
-    """Queue ``n_iters`` kernel iterations, calling ``count()`` before each;
-    returns ``(x, Y, mag, stats)``."""
+    """Queue ``n_iters`` kernel iterations, calling ``count(many_wave)``
+    before each; returns ``(x, Y, mag, stats)``."""
     return _fullrun.launch(
         "specinv_admm_iteration", count, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
         with_mag, with_loss, valid,

@@ -33,19 +33,23 @@ from ._fullrun import (  # noqa: F401  (supports, UNSUPPORTED: the backend rule 
 )
 
 # Kernel iterations launched (one frame + one OLA launch each) by the whole
-# run, and by the raw per-iteration dispatch.
+# run, and by the raw per-iteration dispatch; and of both, those whose frame
+# launch took the many-wave plan (_fullrun.frame_plan).
 launches = 0
 iteration_launches = 0
+many_wave_launches = 0
 
 
-def _count():
-    global launches
+def _count(many_wave: bool):
+    global launches, many_wave_launches
     launches += 1
+    many_wave_launches += many_wave
 
 
-def _count_iteration():
-    global iteration_launches
+def _count_iteration(many_wave: bool):
+    global iteration_launches, many_wave_launches
     iteration_launches += 1
+    many_wave_launches += many_wave
 
 
 def _plain(x_pad, pre, target, window, inv_env, lr, cfg: STFTConfig, n_iters: int,
@@ -82,8 +86,8 @@ def fused_gl_iteration_reference(
 
 def _launch(x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag, with_loss,
             valid, count):
-    """Queue ``n_iters`` kernel iterations, calling ``count()`` before each;
-    returns ``(x, pre, mag, stats)``."""
+    """Queue ``n_iters`` kernel iterations, calling ``count(many_wave)``
+    before each; returns ``(x, pre, mag, stats)``."""
     return _fullrun.launch(
         "specinv_gl_iteration", count, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
         with_mag, with_loss, valid,

@@ -22,7 +22,7 @@ from specinv_tpu_torch.models import _kernel_driver as kd
 from specinv_tpu_torch.models.phase_init import phase_init_tm
 from specinv_tpu_torch.ops import stft as stft_ops
 from specinv_tpu_torch.ops.cuda import (
-    admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
+    _fullrun, admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
 )
 from specinv_tpu_torch.ops.framing import pad_center
 from specinv_tpu_torch.utils.corpus import make_speech_like
@@ -146,6 +146,65 @@ def test_iteration_matches_plain_version_at_every_size(dev, n, onesided, normali
         assert _rel(ours[1], ref[1]) <= plane_lim, name
         assert _rel(ours[2], ref[2]) <= plane_lim, name
         assert float(((ours[3] - ref[3]).abs() / ref[3].abs()).max()) <= sum_lim, name
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_many_wave_plan_gives_each_clip_its_one_clip_bits(dev, name):
+    """8 clips of 2 s at n_fft 2048, hop 512 (87 frames each, 696 a launch)
+    take the many-wave frame launch, each clip alone the one-wave launch:
+    5 whole-run iterations (state and |S| too) and one raw iteration give
+    every clip the bits it gets alone, and the many-wave counter counts the
+    batch's launches, one an iteration, and none of the clips'."""
+    mod, run, scalar, _ = KERNELS[name]
+    it = RAW[name][1]
+    cfg, (x, s, tgt, win, env) = _state(dev, 2048, 512, batch=8, n_samples=44100)
+    B, T = tgt.shape[:2]
+    assert _fullrun.frame_plan(B * T, 2048).many_wave
+    assert not _fullrun.frame_plan(T, 2048).many_wave
+    before = mod.many_wave_launches
+    whole = getattr(mod, run)(x, s, tgt, win, env, scalar, cfg, 5, emit_state=True,
+                              with_mag=True)
+    whole_raw = getattr(mod, it)(x, s, tgt, win, scalar, cfg, with_mag=True)
+    torch.cuda.synchronize()
+    assert mod.many_wave_launches - before == 6
+    for b in range(B):
+        one = getattr(mod, run)(x[b : b + 1], s[b : b + 1], tgt[b : b + 1], win, env, scalar,
+                                cfg, 5, emit_state=True, with_mag=True)
+        one_raw = getattr(mod, it)(x[b : b + 1], s[b : b + 1], tgt[b : b + 1], win, scalar, cfg,
+                                   with_mag=True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u[b : b + 1], v) for u, v in zip(whole, one))
+        assert all(torch.equal(u[b : b + 1], v) for u, v in zip(whole_raw, one_raw))
+    assert mod.many_wave_launches - before == 6
+
+
+@pytest.mark.parametrize("onesided", [True, False])
+@pytest.mark.parametrize("n", [n for n in SIZES if n <= _fullrun.MANY_WAVE_MAX_N_FFT])
+def test_many_wave_plan_keeps_the_bits_at_every_size(dev, n, onesided):
+    """One iteration of kernel A and one of C (state and |S| too), hop n / 4,
+    on 4 clips whose frames together take the many-wave launch while each
+    clip alone takes the one-wave launch: every clip gets its bits alone."""
+    lo, hi = 1, 1 << 20  # the fewest frames that take the many-wave plan lie in (lo, hi]
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if _fullrun.frame_plan(mid, n).many_wave else (mid, hi)
+    frames = -(-hi // 4)
+    cfg, state = _state(dev, n, n // 4, batch=4, n_samples=(frames - 1) * (n // 4),
+                        onesided=onesided)
+    x, s, tgt, win, env = state
+    B, T = tgt.shape[:2]
+    assert _fullrun.frame_plan(B * T, n).many_wave and not _fullrun.frame_plan(T, n).many_wave
+    for name, (mod, run, scalar, _) in KERNELS.items():
+        before = mod.many_wave_launches
+        whole = getattr(mod, run)(*state, scalar, cfg, 1, emit_state=True, with_mag=True)
+        torch.cuda.synchronize()
+        assert mod.many_wave_launches - before == 1, name
+        for b in range(B):
+            one = getattr(mod, run)(x[b : b + 1], s[b : b + 1], tgt[b : b + 1], win, env, scalar,
+                                    cfg, 1, emit_state=True, with_mag=True)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u[b : b + 1], v) for u, v in zip(whole, one)), (name, b)
+        assert mod.many_wave_launches - before == 1, name
 
 
 # The direct-DFT kernels: (module, wrapper, scalar, extra arguments, limits
