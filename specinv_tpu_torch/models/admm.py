@@ -138,28 +138,31 @@ def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     (B, L).  One launch per iteration under ``utils/runner.iterate``, the
     magnitude plane as the eval output; ``mode`` is honoured (JAX pins
     ``'fori'``; the two give the same result).  ``Y0`` is the seed (``U0 =
-    0``), every frame valid.
+    0``), every frame valid.  Spans as ``griffin_lim.run_tm_dft``'s.
     """
     T = target_tm.shape[-2]
-    geo = make_geometry(cfg, T)
-    win32 = window.float()
-    inv_env = make_inv_env(cfg, win32, T, geo)
-    target = target_tm.float().contiguous()
-    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
+    with span("seed"):
+        geo = make_geometry(cfg, T)
+        win32 = window.float()
+        inv_env = make_inv_env(cfg, win32, T, geo)
+        target = target_tm.float().contiguous()
+        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
     with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
 
-    iteration = admm_fused.bind(target, win32, inv_env, rho, cfg, T, precision, with_mag)
+    with span("loop"):
+        iteration = admm_fused.bind(target, win32, inv_env, rho, cfg, T, precision, with_mag)
 
-    def step_fn(state):
-        x, mag, y = iteration(*state)
-        return (x, y), mag
+        def step_fn(state):
+            x, mag, y = iteration(*state)
+            return (x, y), mag
 
-    state = iterate(
-        step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
-        tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
-    )
-    return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
+        state = iterate(
+            step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
+            tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+            early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
+        )
+    with span("synth"):
+        return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
 
 
 def _full_run(spec_tm, window, rho, tol, cfg, max_iter, eva_iter, metric,

@@ -125,28 +125,33 @@ def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     One kernel launch per iteration under ``utils/runner.iterate``, with the
     magnitude plane as the eval output (written only when a run evaluates).
     JAX pins ``mode='fori'`` here; the port's two modes give the same
-    result, so ``mode`` is honoured.
+    result, so ``mode`` is honoured.  Spans as :func:`run_tm_kernel`'s: the
+    first inverse in ``specinv.seed``, the loop in ``specinv.loop`` (each
+    iteration's launch in ``specinv.launch``), the trim in ``specinv.synth``.
     """
     T = target_tm.shape[-2]
-    geo = make_geometry(cfg, T)
-    win32 = window.float()
-    inv_env = make_inv_env(cfg, win32, T, geo)
-    target = target_tm.float().contiguous()
-    x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
+    with span("seed"):
+        geo = make_geometry(cfg, T)
+        win32 = window.float()
+        inv_env = make_inv_env(cfg, win32, T, geo)
+        target = target_tm.float().contiguous()
+        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
     with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
 
-    iteration = gl_fused.bind(target, win32, inv_env, lr, cfg, precision, with_mag)
+    with span("loop"):
+        iteration = gl_fused.bind(target, win32, inv_env, lr, cfg, precision, with_mag)
 
-    def step_fn(state):
-        x, mag, pre = iteration(*state)
-        return (x, pre), mag
+        def step_fn(state):
+            x, mag, pre = iteration(*state)
+            return (x, pre), mag
 
-    state = iterate(
-        step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
-        tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
-    )
-    return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
+        state = iterate(
+            step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
+            tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
+            early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
+        )
+    with span("synth"):
+        return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
 
 
 def time_major(spec_b3: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 
 from ...config import STFTConfig
 from ...models._kernel_driver import make_geometry
+from ...utils.profiling import host_sync, span
 from .. import dft
 from . import _build
 from ._fullrun import PAD_CODES
@@ -80,10 +81,17 @@ class DeviceTables(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def device_tables(n_fft: int, normalized: bool, device: torch.device) -> DeviceTables:
     """The tables on ``device``, built once per ``(n_fft, normalized,
-    device)`` (about 69 MB at n_fft 2048)."""
-    w = torch.from_numpy(np.array(dft.dft_tables(n_fft, normalized)[2])).to(device)
-    fwd, inv = (t.to(device) for t in interleaved_tables(n_fft, normalized))
+    device)`` (about 69 MB at n_fft 2048); each copy to a card is one host
+    sync."""
+    host = (torch.from_numpy(np.array(dft.dft_tables(n_fft, normalized)[2])),
+            *interleaved_tables(n_fft, normalized))
+    w, fwd, inv = (_to(t, device) for t in host)
     return DeviceTables(w, fwd, inv, *dft.split_bf16(fwd), *dft.split_bf16(inv))
+
+
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    with host_sync(device):
+        return t.to(device)
 
 
 def _ptr(t):
@@ -192,6 +200,10 @@ class Iteration(torch.autograd.Function):
 
 
 def iterate_once(step, replay, x_pad, state, target, window, inv_env, with_mag):
-    """``(x, mag or None, state)`` of one :class:`Iteration`."""
-    x, state_out, *mag = Iteration.apply(step, replay, x_pad, state, target, window, inv_env)
+    """``(x, mag or None, state)`` of one :class:`Iteration`; one
+    ``specinv.launch`` span covers the dispatch (the kernel's, or on the
+    CPU the plain version's)."""
+    with span("launch"):
+        x, state_out, *mag = Iteration.apply(step, replay, x_pad, state, target, window,
+                                             inv_env)
     return x, (mag[0] if with_mag else None), state_out

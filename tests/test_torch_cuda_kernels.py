@@ -241,6 +241,24 @@ def test_dft_kernel_matches_plain_version_at_c7(dev, name, precision):
         assert err(u, v) <= limit
 
 
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_dft_kernel_at_the_whisper_cell_shape(dev, precision):
+    """One iteration of kernel E at the benchmark cell gl400_16k_batch32's
+    shape: 32 chunks of 30 s at n_fft 400, hop 160, 96,032 frames a launch,
+    against a float64 run of the plain version, within the 400/160 limits."""
+    mod, run, scalar, extra, limits = DFT_KERNELS["gl_fused"]
+    cfg, state = _state(dev, 400, 160, batch=32, n_samples=480000)
+    assert state[2].shape == (32, 3001, 201)
+    wide = [t.to(torch.complex128 if t.is_complex() else torch.float64) for t in state]
+    before = mod.launches
+    ours = getattr(mod, run)(*state, scalar, cfg, *extra, precision=precision)
+    torch.cuda.synchronize()
+    assert mod.launches - before == 1
+    ref = getattr(mod, f"{run}_reference")(*wide, scalar, cfg, *extra, precision=precision)
+    for u, v, limit in zip(ours, ref, limits[precision]):
+        assert _rel(u, v) <= limit
+
+
 @pytest.mark.parametrize("name", sorted(DFT_KERNELS))
 @pytest.mark.parametrize("precision", ["high", "highest", "bf16x2t"])
 @pytest.mark.parametrize("n_fft,hop", [(400, 100), (500, 125), (1000, 160), (4096, 1024)])

@@ -51,6 +51,10 @@ def calls(device):
         "griffin_lim_no_eval": lambda: st.griffin_lim(mag, max_iter=12, tol=0.0,
                                                       backend="kernel", verbose=False, **kw),
         "ADMM": lambda: st.ADMM(mag, max_iter=12, backend="kernel", verbose=False, **kw),
+        # the direct-DFT path: one launch per iteration (the plain version here)
+        "griffin_lim_dft": lambda: st.griffin_lim(mag, max_iter=12, backend="dft",
+                                                  verbose=False, **kw),
+        "ADMM_dft": lambda: st.ADMM(mag, max_iter=12, backend="dft", verbose=False, **kw),
         # 20 frames and 3 of look-ahead: 23 steps, launches of 8, 8 and 7
         "RTISI_LA": lambda: st.RTISI_LA(mag, look_ahead=3, max_iter=2, backend="kernel",
                                         verbose=False, **kw),
@@ -67,6 +71,8 @@ TREES = {
     "griffin_lim": {**CALL, ("loop", "launch"): 2},
     "griffin_lim_no_eval": {**CALL, ("loop", "launch"): 1},
     "ADMM": {**CALL, ("loop", "launch"): 2},
+    "griffin_lim_dft": {**CALL, ("loop", "launch"): 12},
+    "ADMM_dft": {**CALL, ("loop", "launch"): 12},
     "RTISI_LA": {**CALL, ("call", "prep"): 2, ("call", "seed"): 1, ("loop", "launch"): 3},
     "stream": {(None, "push"): 6, ("push", "seed"): 2, ("push", "prep"): 6,
                ("push", "launch"): 6, ("push", "state"): 6, ("push", "synth"): 3,
