@@ -9,9 +9,17 @@ stopping iteration (the reference's break-out state).
 
 The two modes give the same result:
 
-* ``mode="fori"`` keeps the stop decision on the device: a ``done`` flag
-  freezes the state with ``torch.where`` and the remaining iterations still
-  run, so nothing waits on the device (no host sync per evaluation).
+* ``mode="fori"`` keeps the stop decision on the device, in a ``done``
+  flag, and runs the remaining iterations, so nothing waits on the device
+  (no host sync per evaluation).  The steps carry the live state as they
+  wrote it; at each evaluation, before the rule sees its loss, a kept copy
+  takes the live state unless ``done`` (one ``torch.where`` over the state,
+  the live tensor first so that the select keeps its layout), and the run
+  returns the live state unless ``done``, else the kept one: the state
+  after the stopping evaluation.  ``done`` only changes at evaluations, so
+  a select in between could change nothing.  A verbose run selects after
+  every step instead, so that its prints after the stop read the frozen
+  state (the JAX package's output).
 * ``mode="while"`` reads the decision back at each evaluation and leaves the
   loop, skipping the work after the stop.
 
@@ -113,17 +121,29 @@ def _progress_print(i, metric_name, metric_val, loss):
     print(f"iter {int(i) + 1}: {metric_name}={_read(metric_val):.4f} loss={_read(loss):.3e}")
 
 
-def _freeze(done, old, new):
-    """``new`` unless ``done``, leaf by leaf over a state of (nested) tuples
-    of tensors.  A leaf updated in place (the same tensor in both, as the
-    L-BFGS history) stays as it is: after a stop, what later steps write
-    there reaches only results that the freeze discards."""
-    if isinstance(old, tuple):
-        leaves = (_freeze(done, o, n) for o, n in zip(old, new))
-        return type(old)(*leaves) if hasattr(old, "_fields") else tuple(leaves)
-    if old is new:
-        return new
-    return torch.where(done, old, new)
+# Selects over a whole state: fori runs' kept copies and returns, and a
+# verbose run's per-step freezes.
+state_selects = 0
+
+
+def _pick(keep_live, live, kept):
+    if isinstance(live, tuple):
+        leaves = (_pick(keep_live, a, b) for a, b in zip(live, kept))
+        return type(live)(*leaves) if hasattr(live, "_fields") else tuple(leaves)
+    if live is kept:
+        return live
+    return torch.where(keep_live, live, kept)
+
+
+def _select(done, live, kept):
+    """``live`` unless ``done``, else ``kept``, leaf by leaf over a state of
+    (nested) tuples of tensors; each select takes the live leaf's layout.
+    A leaf updated in place (the same tensor in both, as the L-BFGS
+    history) stays as it is: after a stop, what later steps write there
+    reaches only results that the select discards."""
+    global state_selects
+    state_selects += 1
+    return _pick(~done, live, kept)
 
 
 class _StopRule:
@@ -204,18 +224,31 @@ def iterate(
         return state
 
     rule = _StopRule(tol, _real_part(target))
+    freeze = verbose and mode == "fori"
+    keep = not verbose and mode == "fori"
+    kept = None  # the state at the last evaluation before the stop
     for i in range(max_iter):
         new_state, out = step_fn(state)
-        state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
+        state = _select(rule.done, new_state, state) if freeze else new_state
         if i % eva_iter != eva_iter - 1:
             continue
+        if keep:
+            kept = state if kept is None else _select(rule.done, state, kept)
         l2 = loss_fn(out, target)
         if verbose:
             _progress_print(i, metric, metric_fn(out, target), l2)
         rule.update(l2)  # done is sticky: later updates cannot undo a stop
         if mode == "while" and rule.stopped():
             break
-    return state
+    return _result(rule, state, kept, max_iter % eva_iter > 0)
+
+
+def _result(rule, live, kept, stepped):
+    """A fori run's result: ``live`` where no evaluation ran, ``kept`` where
+    no step ran after the last one, else ``live`` unless ``done``."""
+    if kept is None:
+        return live
+    return _select(rule.done, live, kept) if stepped else kept
 
 
 def iterate_segmented(
@@ -239,8 +272,9 @@ def iterate_segmented(
     early-stopping run is exactly ``max_iter // eva_iter`` segments of
     ``eva_iter`` iterations (``seg_fn(state) -> (state, out)`` runs one and
     returns the LAST iteration's eval output), then an eval-free tail of
-    ``max_iter % eva_iter`` iterations (``tail_fn``), run only if the stop
-    never fired.  ``loss_fn``/``metric_fn`` take ``(out, target)``.
+    ``max_iter % eva_iter`` iterations (``tail_fn``), whose result counts
+    only if the stop never fired.  ``loss_fn``/``metric_fn`` take ``(out,
+    target)``.
     """
     if not (eva_iter > 0 and max_iter > 0):
         raise ValueError("eva_iter and max_iter must be positive")
@@ -256,16 +290,22 @@ def iterate_segmented(
             tail_fn = checkpointed(tail_fn)
 
     rule = _StopRule(tol, _real_part(target))
+    freeze = verbose and mode == "fori"
+    keep = not verbose and mode == "fori"
+    kept = None  # the state at the last segment before the stop
     for k in range(max_iter // eva_iter):
         new_state, out = seg_fn(state)
+        state = _select(rule.done, new_state, state) if freeze else new_state
+        if keep:
+            kept = state if kept is None else _select(rule.done, state, kept)
         l2 = loss_fn(out, target)
         if verbose:
             _progress_print((k + 1) * eva_iter - 1, metric, metric_fn(out, target), l2)
-        state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
         rule.update(l2)
         if mode == "while" and rule.stopped():
             return state
-    if tail_fn is not None and max_iter % eva_iter:
+    tail = tail_fn is not None and max_iter % eva_iter > 0
+    if tail:
         new_state, _ = tail_fn(state)
-        state = new_state if mode == "while" else _freeze(rule.done, state, new_state)
-    return state
+        state = _select(rule.done, new_state, state) if freeze else new_state
+    return _result(rule, state, kept, tail)

@@ -25,6 +25,7 @@ from specinv_tpu_torch.ops.cuda import (
     _fullrun, admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
 )
 from specinv_tpu_torch.ops.framing import pad_center
+from specinv_tpu_torch.utils import runner
 from specinv_tpu_torch.utils.corpus import make_speech_like
 
 rtisi_la = importlib.import_module("specinv_tpu_torch.models.rtisi_la")
@@ -335,6 +336,26 @@ def test_dft_highest_launches_repeat_their_bits(dev, name):
         b = fn(*state, scalar, cfg, *extra, precision="highest")
         torch.cuda.synchronize()
         assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("tol", [1.0, 1e-6])
+def test_dft_griffin_lim_selects_at_evaluations(dev, tol):
+    """A 100-iteration 'dft' call at 400/160 on a few clips launches kernel E
+    100 times and selects the kept state at most 11 times (once per
+    evaluation plus one, utils/runner), and gives the 'while' result, with
+    the stop firing (tol 1.0: at the second evaluation) or as it comes."""
+    cfg, (_x, _s, tgt, win, _env) = _state(dev, 400, 160, batch=4, n_samples=48000)
+    mag = tgt.transpose(-1, -2).contiguous()  # (B, F, T), as callers hand it over
+    kw = dict(max_iter=100, tol=tol, eva_iter=10, verbose=False, hop_length=160,
+              window=win, backend="dft")
+    launches, selects = gl_fused.launches, runner.state_selects
+    a = st.griffin_lim(mag, mode="fori", **kw)
+    torch.cuda.synchronize()
+    assert gl_fused.launches - launches == 100
+    assert runner.state_selects - selects <= 11
+    b = st.griffin_lim(mag, mode="while", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("name,precision", [

@@ -43,6 +43,7 @@ from specinv_tpu_torch.config import canonicalize as tcanon
 from specinv_tpu_torch.models import _kernel_driver as kd
 from specinv_tpu_torch.ops import dft, fourier
 from specinv_tpu_torch.ops.cuda import _dft, gl_fused
+from specinv_tpu_torch.utils import runner
 
 from specinv_tpu_torch.utils.corpus import make_speech_like
 
@@ -329,6 +330,21 @@ def test_dft_modes_agree_and_early_stop_freezes():
     # the stop fires at the second eval: 10 iterations, not 60
     c = st.griffin_lim(mag, backend="dft", **dict(kw, max_iter=10, tol=0.0))
     torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tol", [1.0, 1e-12])
+def test_dft_fori_selects_once_per_evaluation(tol):
+    """'fori' selects the kept state at evaluations only (utils/runner):
+    at most one select per evaluation plus one, and the 'while' result, with
+    the stop firing (tol 1.0) or not."""
+    spec, win = _spec_pair(1)
+    kw = dict(max_iter=40, tol=tol, eva_iter=10, verbose=False, hop_length=HOP, window=win,
+              backend="dft")
+    mag = torch.from_numpy(np.abs(spec))
+    before = runner.state_selects
+    a = st.griffin_lim(mag, mode="fori", **kw)
+    assert runner.state_selects - before <= 40 // 10 + 1
+    torch.testing.assert_close(a, st.griffin_lim(mag, mode="while", **kw), rtol=0, atol=0)
 
 
 def test_dft_default_precision_knob():

@@ -22,6 +22,7 @@ import specinv_tpu as si
 import specinv_tpu_torch as st
 tgl = importlib.import_module("specinv_tpu_torch.models.griffin_lim")
 from specinv_tpu_torch.ops.cuda import gl_fullrun
+from specinv_tpu_torch.utils import runner
 
 from .helpers import make_signal, torch_stft
 
@@ -112,6 +113,23 @@ def test_modes_agree_and_early_stop_freezes():
         # the stop fires at the second eval: 10 iterations, not 60
         c = st.griffin_lim(m, max_iter=10, tol=0.0, backend=backend, verbose=False)
         torch.testing.assert_close(a, c, rtol=0, atol=1e-6 * float(c.abs().max()))
+
+
+@pytest.mark.parametrize("backend", ["fft", "kernel"])
+@pytest.mark.parametrize("tol", [1.0, 1e-12])
+def test_fori_selects_once_per_evaluation(backend, tol):
+    """'fori' selects the kept state at evaluations only (utils/runner), on
+    the per-iteration and the segmented driver: at most one select per
+    evaluation plus one, and the 'while' result, with the stop firing
+    (tol 1.0) or not."""
+    mag = torch.from_numpy(_mag(make_signal((8000,)), 256))
+    if backend == "kernel":
+        mag = mag.float()
+    kw = dict(max_iter=43, tol=tol, eva_iter=10, verbose=False, backend=backend)
+    before = runner.state_selects
+    a = st.griffin_lim(mag, mode="fori", **kw)
+    assert runner.state_selects - before <= 43 // 10 + 1
+    torch.testing.assert_close(a, st.griffin_lim(mag, mode="while", **kw), rtol=0, atol=0)
 
 
 def test_gradient_matches_jax():
