@@ -505,9 +505,9 @@ def kernel_state(n_fft, hop, n_samples, batch, dev, **stft_kwargs):
     magnitude, the SPSI seed (Griffin-Lim's momentum, ADMM's Y0) and
     ``istft(seed)`` in padded coordinates."""
     from specinv_tpu_torch.config import canonicalize
-    from specinv_tpu_torch.models import _kernel_driver as kd
     from specinv_tpu_torch.models.phase_init import phase_init_tm
     from specinv_tpu_torch.ops import stft as stft_ops
+    from specinv_tpu_torch.ops import twins
     from specinv_tpu_torch.ops.framing import pad_center
     from specinv_tpu_torch.utils.corpus import make_speech_like
 
@@ -520,9 +520,9 @@ def kernel_state(n_fft, hop, n_samples, batch, dev, **stft_kwargs):
     mag = stft_ops.stft(x, cfg, win).abs().contiguous()
     seed = phase_init_tm(mag, cfg).to(torch.complex64)
     T = mag.shape[-2]
-    geo = kd.make_geometry(cfg, T)
+    geo = twins.make_geometry(cfg, T)
     x_pad = pad_center(stft_ops.istft(seed, cfg, win), cfg).contiguous()
-    return cfg, (x_pad, seed, mag, win, kd.make_inv_env(cfg, win, T, geo))
+    return cfg, (x_pad, seed, mag, win, twins.make_inv_env(cfg, win, T, geo))
 
 
 def check_kernel(label, mod, run, scalar, cfg, state, n_iters, limits):
@@ -750,11 +750,11 @@ def check_raw(label, mod, run, scalar, cfg, state, valid, n_iters, limits):
     ``state = (x, plane, target, window)``; checked after 1 and ``n_iters``
     launches at ``limits = (x, planes, eval sums)``.  Returns the max abs
     error of x."""
-    from specinv_tpu_torch.models import _kernel_driver as kd
+    from specinv_tpu_torch.ops import twins
 
     fn, ref_fn = getattr(mod, run), getattr(mod, f"{run}_reference")
     x, plane, tgt, win = state
-    inv = kd.make_inv_env(cfg, win, tgt.shape[-2], kd.raw_geometry(cfg, tgt.shape[-2]))
+    inv = twins.make_inv_env(cfg, win, tgt.shape[-2], twins.raw_geometry(cfg, tgt.shape[-2]))
     # the first and last n_fft - hop samples lack the frames a neighbour
     # shard adds; under a tapered window their envelope falls to ~1e-6, and
     # dividing by it would amplify rounding 1e5 times: they start the next

@@ -73,9 +73,9 @@ def main() -> None:
     sys.path.insert(0, str(Path(args.root).resolve()))
     import specinv_tpu_torch as st
     from specinv_tpu_torch.config import canonicalize
-    from specinv_tpu_torch.models import _kernel_driver as kd
     from specinv_tpu_torch.models.phase_init import phase_init_tm
     from specinv_tpu_torch.ops import stft as stft_ops
+    from specinv_tpu_torch.ops import twins
     from specinv_tpu_torch.ops.cuda import _build, admm_fused, gl_fused
     from specinv_tpu_torch.ops.framing import pad_center
     from specinv_tpu_torch.utils.corpus import make_speech_like
@@ -92,7 +92,7 @@ def main() -> None:
     seed = phase_init_tm(tgt, cfg).to(torch.complex64)
     T = tgt.shape[-2]
     x_pad = pad_center(stft_ops.istft(seed, cfg, win), cfg).contiguous()
-    inv_env = kd.make_inv_env(cfg, win, T, kd.make_geometry(cfg, T))
+    inv_env = twins.make_inv_env(cfg, win, T, twins.make_geometry(cfg, T))
     state = (x_pad, seed, tgt, win, inv_env)
 
     out = {}

@@ -9,7 +9,7 @@ order:
 with ``rho = 1`` behaving like Griffin-Lim, and the pre-projection magnitude
 ``|R|`` as the metric / stop-criterion output.
 
-Three backends, chosen as in ``griffin_lim`` (``resolve_backend``):
+Three backends, chosen as in ``griffin_lim`` (``common.resolve_backend``):
 
 * ``'kernel'``: the hand-written CUDA whole-run kernel
   (``ops/cuda/admm_fullrun``), the counterpart of the JAX ``pallas4`` path
@@ -35,17 +35,13 @@ from typing import NamedTuple
 import torch
 
 from ..config import STFTConfig
-from ..ops import dft
 from ..ops.cuda import admm_fullrun, admm_fused
-from ..ops.framing import pad_center
 from ..ops.stft import istft, make_envelope, stft
 from ..utils.profiling import span
 from ..utils.runner import iterate, stop_loss_fn
-from ._kernel_driver import make_geometry, make_inv_env, run_kernel_loop
-from .common import prepare_spec_b3, restore_output
-from .griffin_lim import (
-    check_args, check_pack, magnitude_project, resolve_backend, seed_spec, time_major,
-)
+from ._kernel_driver import run_dft, run_kernel
+from .common import prepare, restore_output
+from .griffin_lim import magnitude_project, seed_spec
 
 
 class ADMMState(NamedTuple):
@@ -95,94 +91,25 @@ def run_tm(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
     return state[3]
 
 
-def run_tm_kernel(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
-                  max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
-                  verbose: bool = False, mode: str = "fori",
-                  early_stop: bool = True, remat: bool = False,
-                  loss_psum_axes=None) -> torch.Tensor:
-    """ADMM through the whole-run kernel in the DR form, the counterpart of
-    the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L).
-
-    The initial state is ``Y0`` = the seed (``U0 = 0``) and ``x0 =
-    istft(seed)`` in padded coordinates.  The kernel takes float32; for CPU
-    tensors its plain version keeps the input's precision, which lets the DR
-    form be held to the literal chain in float64.
-    """
-    T = target_tm.shape[-2]
-    with span("seed"):
-        geo = make_geometry(cfg, T)
-        real = torch.float32 if target_tm.is_cuda else target_tm.dtype
-        win = window.to(real)
-        inv_env = make_inv_env(cfg, win, T, geo)
-        target = target_tm.to(real).contiguous()
-        y0 = init_spec_tm.to(torch.complex64 if real == torch.float32 else torch.complex128)
-        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).to(real), cfg)
-
-    def run(state, n_iters, **flags):
-        return admm_fullrun.fused_admm_run(
-            state[0], state[1], target, win, inv_env, rho, cfg, n_iters, **flags)
-
-    return run_kernel_loop(
-        run, (x_pad0, y0), target, geo, max_iter=max_iter, tol=tol,
-        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
-    )
+def run_tm_kernel(*args, **kwargs) -> torch.Tensor:
+    """``_kernel_driver.run_kernel`` on kernel C.  On CPU tensors its plain
+    version keeps the input's precision, which lets the DR form be held to
+    the literal chain in float64."""
+    return run_kernel(admm_fullrun.fused_admm_run, None, *args, **kwargs)
 
 
-def run_tm_dft(target_tm, init_spec_tm, window, rho, tol, cfg: STFTConfig,
-               max_iter: int = 1000, eva_iter: int = 10, metric: str = "sc",
-               verbose: bool = False, mode: str = "fori", early_stop: bool = True,
-               remat: bool = False, precision="high", loss_psum_axes=None) -> torch.Tensor:
-    """ADMM through the direct-DFT iteration kernel in the DR form (float32),
-    the counterpart of the JAX ``admm.run_tm_pallas``: target (B, T, F) ->
-    (B, L).  One launch per iteration under ``utils/runner.iterate``, the
-    magnitude plane as the eval output; ``mode`` is honoured (JAX pins
-    ``'fori'``; the two give the same result).  ``Y0`` is the seed (``U0 =
-    0``), every frame valid.  Spans as ``griffin_lim.run_tm_dft``'s.
-    """
-    T = target_tm.shape[-2]
-    with span("seed"):
-        geo = make_geometry(cfg, T)
-        win32 = window.float()
-        inv_env = make_inv_env(cfg, win32, T, geo)
-        target = target_tm.float().contiguous()
-        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
-    with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
-
-    with span("loop"):
-        iteration = admm_fused.bind(target, win32, inv_env, rho, cfg, T, precision, with_mag)
-
-        def step_fn(state):
-            x, mag, y = iteration(*state)
-            return (x, y), mag
-
-        state = iterate(
-            step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
-            tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-            early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
-        )
-    with span("synth"):
-        return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
+def run_tm_dft(*args, **kwargs) -> torch.Tensor:
+    """``_kernel_driver.run_dft`` on kernel F, every frame valid."""
+    return run_dft(admm_fused.bind, *args, **kwargs)
 
 
-def _full_run(spec_tm, window, rho, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat, precision=None,
-              loss_psum_axes=None):
+def _full_run(spec_tm, window, rho, tol, cfg, backend, precision=None, **kwargs):
     """Phase seed + loop, from the time-major spectrogram."""
     cmplx_tm, target_tm = seed_spec(spec_tm, cfg)
     if backend == "dft":
-        return run_tm_dft(
-            target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
-            eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-            early_stop=early_stop, remat=remat, precision=precision,
-            loss_psum_axes=loss_psum_axes,
-        )
-    run = run_tm_kernel if backend == "kernel" else run_tm
-    return run(
-        target_tm, cmplx_tm, window, rho, tol, cfg, max_iter=max_iter,
-        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
-    )
+        kwargs["precision"] = precision
+    run = {"fft": run_tm, "kernel": run_tm_kernel, "dft": run_tm_dft}[backend]
+    return run(target_tm, cmplx_tm, window, rho, tol, cfg, **kwargs)
 
 
 def ADMM(
@@ -218,13 +145,8 @@ def ADMM(
                     f"need eva_iter > 0, max_iter > 0 and tol >= 0 "
                     f"(got {eva_iter}, {max_iter}, {tol})"
                 )
-            check_args(stft_kwargs, loss_psum_axes)
-            spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-            backend = resolve_backend(backend, cfg, window, spec_b3.device,
-                                      spec_b3.is_complex())
-            check_pack(pack, backend, spec_b3.shape[0])
-            precision = dft.check_precision(precision, backend)
-            spec_tm = time_major(spec_b3)
+            spec_tm, was_2d, cfg, window, backend, precision = prepare(
+                spec, backend, precision, pack, loss_psum_axes, stft_kwargs)
         x = _full_run(
             spec_tm, window, rho, tol, cfg, max_iter=max_iter, eva_iter=eva_iter,
             metric=metric, verbose=verbose, mode=mode, backend=backend,

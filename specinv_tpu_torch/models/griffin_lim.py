@@ -30,22 +30,17 @@ the CPU ``'auto'`` is ``'fft'``.
 """
 from __future__ import annotations
 
-import numbers
-
 import torch
 
-from ..config import STFT_KWARG_NAMES, STFTConfig
-from ..ops import dft, fourier
-from ..ops.cuda import _dft, gl_fullrun, gl_fused
-from ..ops.framing import pad_center
+from ..config import STFTConfig
+from ..ops.cuda import gl_fullrun, gl_fused
 from ..ops.stft import istft, make_envelope, stft
+from ..ops.twins import PROJ_EPS
 from ..utils.profiling import span
 from ..utils.runner import iterate, stop_loss_fn
-from ._kernel_driver import PROJ_EPS, make_geometry, make_inv_env, run_kernel_loop
-from .common import prepare_spec_b3, restore_output
+from ._kernel_driver import run_dft, run_kernel
+from .common import prepare, restore_output
 from .phase_init import phase_init_tm
-
-BACKENDS = ("auto", "kernel", "dft", "fft")
 
 
 def magnitude_project(spec: torch.Tensor, target_mag: torch.Tensor) -> torch.Tensor:
@@ -88,77 +83,14 @@ def run_tm(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
     return state[0]
 
 
-def run_tm_kernel(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
-                  max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
-                  verbose: bool = False, mode: str = "fori",
-                  early_stop: bool = True, remat: bool = False,
-                  loss_psum_axes=None) -> torch.Tensor:
-    """Griffin-Lim through the whole-run kernel (float32), the counterpart of
-    the JAX ``run_tm_pallas4``: target (B, T, F) -> (B, L)."""
-    T = target_tm.shape[-2]
-    with span("seed"):
-        geo = make_geometry(cfg, T)
-        win32 = window.float()
-        inv_env = make_inv_env(cfg, win32, T, geo)
-        target = target_tm.float().contiguous()
-        pre0 = init_spec_tm.to(torch.complex64)
-        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
-
-    def run(state, n_iters, **flags):
-        return gl_fullrun.fused_gl_run(
-            state[0], state[1], target, win32, inv_env, lr, cfg, n_iters, **flags)
-
-    return run_kernel_loop(
-        run, (x_pad0, pre0), target, geo, max_iter=max_iter, tol=tol,
-        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
-    )
+def run_tm_kernel(*args, **kwargs) -> torch.Tensor:
+    """``_kernel_driver.run_kernel`` on kernel A, float32 on every device."""
+    return run_kernel(gl_fullrun.fused_gl_run, torch.float32, *args, **kwargs)
 
 
-def run_tm_dft(target_tm, init_spec_tm, window, lr, tol, cfg: STFTConfig,
-               max_iter: int = 200, eva_iter: int = 10, metric: str = "sc",
-               verbose: bool = False, mode: str = "fori", early_stop: bool = True,
-               remat: bool = False, precision="high", loss_psum_axes=None) -> torch.Tensor:
-    """Griffin-Lim through the direct-DFT iteration kernel (float32), the
-    counterpart of the JAX ``run_tm_pallas``: target (B, T, F) -> (B, L).
-
-    One kernel launch per iteration under ``utils/runner.iterate``, with the
-    magnitude plane as the eval output (written only when a run evaluates).
-    JAX pins ``mode='fori'`` here; the port's two modes give the same
-    result, so ``mode`` is honoured.  Spans as :func:`run_tm_kernel`'s: the
-    first inverse in ``specinv.seed``, the loop in ``specinv.loop`` (each
-    iteration's launch in ``specinv.launch``), the trim in ``specinv.synth``.
-    """
-    T = target_tm.shape[-2]
-    with span("seed"):
-        geo = make_geometry(cfg, T)
-        win32 = window.float()
-        inv_env = make_inv_env(cfg, win32, T, geo)
-        target = target_tm.float().contiguous()
-        x_pad0 = pad_center(istft(init_spec_tm, cfg, window).float(), cfg)
-    with_mag = verbose or (early_stop and not (isinstance(tol, (int, float)) and tol == 0))
-
-    with span("loop"):
-        iteration = gl_fused.bind(target, win32, inv_env, lr, cfg, precision, with_mag)
-
-        def step_fn(state):
-            x, mag, pre = iteration(*state)
-            return (x, pre), mag
-
-        state = iterate(
-            step_fn, (x_pad0, init_spec_tm.to(torch.complex64)), target, max_iter=max_iter,
-            tol=tol, eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-            early_stop=early_stop, remat=remat, loss_fn=stop_loss_fn(loss_psum_axes),
-        )
-    with span("synth"):
-        return state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
-
-
-def time_major(spec_b3: torch.Tensor) -> torch.Tensor:
-    """The ``(B, T, F)`` view the drivers take, 16-bit floats as float32."""
-    if spec_b3.dtype in (torch.bfloat16, torch.float16):
-        spec_b3 = spec_b3.float()
-    return spec_b3.transpose(-1, -2)
+def run_tm_dft(*args, **kwargs) -> torch.Tensor:
+    """``_kernel_driver.run_dft`` on kernel E."""
+    return run_dft(gl_fused.bind, *args, **kwargs)
 
 
 def seed_spec(spec_tm: torch.Tensor, cfg: STFTConfig):
@@ -170,80 +102,13 @@ def seed_spec(spec_tm: torch.Tensor, cfg: STFTConfig):
         return phase_init_tm(spec_tm, cfg), spec_tm
 
 
-def _full_run(spec_tm, window, lr, tol, cfg, max_iter, eva_iter, metric,
-              verbose, mode, backend, early_stop, remat, precision=None,
-              loss_psum_axes=None):
+def _full_run(spec_tm, window, lr, tol, cfg, backend, precision=None, **kwargs):
     """Phase seed + loop, from the time-major spectrogram."""
     cmplx_tm, target_tm = seed_spec(spec_tm, cfg)
     if backend == "dft":
-        return run_tm_dft(
-            target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
-            eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-            early_stop=early_stop, remat=remat, precision=precision,
-            loss_psum_axes=loss_psum_axes,
-        )
-    run = run_tm_kernel if backend == "kernel" else run_tm
-    return run(
-        target_tm, cmplx_tm, window, lr, tol, cfg, max_iter=max_iter,
-        eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,
-        early_stop=early_stop, remat=remat, loss_psum_axes=loss_psum_axes,
-    )
-
-
-def resolve_backend(backend: str, cfg: STFTConfig, window, device,
-                    is_complex: bool = False) -> str:
-    """``'auto'`` on CUDA -> ``'kernel'`` when the whole-run kernels take
-    ``cfg``, else ``'dft'`` when the direct-DFT kernels take it and the
-    spectrogram is real (``is_complex`` False), else ``'fft'``; on the CPU
-    ``'fft'``.  Decided from the config, before any launch.  Shared by
-    ``griffin_lim`` and ``ADMM``."""
-    fourier.check_not_xla_lowering(backend, direct_dft=True)
-    if backend in ("pallas", "pallas4"):
-        raise ValueError(
-            f"backend {backend!r} is a TPU kernel; the port's counterparts are 'dft' "
-            "(JAX 'pallas') and 'kernel' (JAX 'pallas4')")
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    ok, dft_ok = gl_fullrun.supports(cfg, window), _dft.supports(cfg, window)
-    if backend == "auto":
-        if device.type != "cuda":
-            return "fft"
-        return "kernel" if ok else ("dft" if dft_ok and not is_complex else "fft")
-    if backend == "kernel" and not ok:
-        raise ValueError(
-            f"the kernel backend needs {gl_fullrun.UNSUPPORTED}; use backend='auto' instead"
-        )
-    if backend == "dft" and not dft_ok:
-        raise ValueError(
-            f"the dft backend needs {_dft.UNSUPPORTED}; use backend='auto' instead"
-        )
-    return backend
-
-
-def check_args(stft_kwargs, loss_psum_axes) -> None:
-    """The backend-free argument checks ``griffin_lim`` and ``ADMM`` share.
-    ``loss_psum_axes`` must name axes of the mesh the caller bound
-    (``parallel.batched``)."""
-    unknown = set(stft_kwargs) - set(STFT_KWARG_NAMES)
-    if unknown:
-        raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
-    stop_loss_fn(loss_psum_axes)
-
-
-def check_pack(pack, backend: str, batch: int) -> None:
-    """JAX's rule for ``pack`` on the resolved backend.  The TPU kernel
-    folds ``pack`` clips into each grid step, bitwise invariant; here one
-    launch already covers every clip, so on ``'kernel'`` (the JAX
-    ``'pallas4'``) a valid ``pack`` changes nothing.  Elsewhere it raises."""
-    if pack is None:
-        return
-    if backend != "kernel":
-        raise ValueError(
-            f"pack applies to the whole-run pallas4 kernel only (the port's 'kernel'; "
-            f"resolved backend here: {backend!r})"
-        )
-    if isinstance(pack, bool) or not isinstance(pack, numbers.Integral) or pack < 1 or batch % pack:
-        raise ValueError(f"pack={pack} must be >= 1 and divide the batch size {batch}")
+        kwargs["precision"] = precision
+    run = {"fft": run_tm, "kernel": run_tm_kernel, "dft": run_tm_dft}[backend]
+    return run(target_tm, cmplx_tm, window, lr, tol, cfg, **kwargs)
 
 
 def griffin_lim(
@@ -275,19 +140,14 @@ def griffin_lim(
     ``loss_psum_axes`` sums the stop loss over those mesh axes, so that
     every rank of ``parallel.batched(..., global_stop=True)`` stops on the
     global loss (on every backend); ``pack`` is taken on ``'kernel'`` as
-    JAX takes it on ``'pallas4'`` (:func:`check_pack`) and changes nothing.
+    JAX takes it on ``'pallas4'`` (``common.check_pack``) and changes nothing.
     """
     with span("call"):
         with span("prep"):
             if alpha < 0:
                 raise ValueError(f"alpha must be >= 0, got {alpha}")
-            check_args(stft_kwargs, loss_psum_axes)
-            spec_b3, was_2d, cfg, window = prepare_spec_b3(spec, **stft_kwargs)
-            backend = resolve_backend(backend, cfg, window, spec_b3.device,
-                                      spec_b3.is_complex())
-            check_pack(pack, backend, spec_b3.shape[0])
-            precision = dft.check_precision(precision, backend)
-            spec_tm = time_major(spec_b3)
+            spec_tm, was_2d, cfg, window, backend, precision = prepare(
+                spec, backend, precision, pack, loss_psum_axes, stft_kwargs)
         x = _full_run(
             spec_tm, window, alpha / (1 + alpha), tol, cfg, max_iter=max_iter,
             eva_iter=eva_iter, metric=metric, verbose=verbose, mode=mode,

@@ -38,10 +38,10 @@ from ..ops import fourier
 from ..ops.cuda import rtisi_fused
 from ..ops.framing import frame, overlap_add
 from ..ops.stft import make_envelope
+from ..ops.twins import PROJ_EPS, RTISIWindows
 from ..transforms import as_tensor, default_device, numpy_dtype, window_tensor
 from ..utils.profiling import host_sync, span
 from ..utils.runner import checkpointed, gate_verbose
-from ._kernel_driver import PROJ_EPS, RTISIWindows
 from .common import prepare_spec_b3, restore_output
 
 BACKENDS = ("auto", "kernel", "fft")

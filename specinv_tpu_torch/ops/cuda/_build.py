@@ -160,3 +160,15 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().specinv_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def check_tensors(device, checks) -> None:
+    """Raise unless each ``(name, tensor, dtype, shape)`` of ``checks`` has
+    that type and shape on ``device``: what a C entry point's pointers must
+    hold."""
+    for name, t, dtype, shape in checks:
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )

@@ -1,33 +1,44 @@
-"""What the direct-DFT kernels share: the config check, the device tables,
-the scratch, the launch (:class:`Launch`, bound once per run) and the
-gradient.
+"""The direct-DFT kernels' wrapper, written once for both algorithms: the
+config check, the device tables, the scratch, the launch (:class:`Launch`),
+the binding of a run (:func:`bind`) and the gradient.
 
 ``csrc/dft_iter.cuh`` is one iteration engine (a frame launch, a
 forward-product launch with an algorithm-specific middle, an
-inverse-product launch, and ``fullrun.cuh``'s OLA launch);
-``gl_fused`` and ``admm_fused`` wrap its two C entry points.  Both keep the
-signal ``x_pad (B, lp)`` in padded coordinates and the state and target as
-``(B, T, F)`` onesided planes in natural bin order, and return ``(x_pad,
-mag, state)`` per iteration.
+inverse-product launch, and ``fullrun.cuh``'s OLA launch); ``gl_fused`` and
+``admm_fused`` each describe one of its two C entry points as a
+:class:`Kernel`.  Both keep the signal ``x_pad (B, lp)`` in padded
+coordinates and the state and target as ``(B, T, F)`` onesided planes in
+natural bin order, and return ``(x_pad, mag, state)`` per iteration.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ...config import STFTConfig
-from ...models._kernel_driver import make_geometry
 from ...utils.profiling import host_sync, span
 from .. import dft
+from ..twins import make_geometry, replay
 from . import _build
 from ._fullrun import PAD_CODES
 
 MAX_N = 4096
 
 UNSUPPORTED = "onesided, a real window, n_fft <= 4096 and 0 < hop <= n_fft"
+
+
+class Kernel(NamedTuple):
+    """What one algorithm gives the engine."""
+
+    name: str        # the algorithm, as errors name it
+    entry: str       # the C entry point
+    # one plain iteration: twin(state, target, window, inv_env, scalar, cfg, geo,
+    # *extra, precision) -> (state, mag)
+    twin: Callable
+    counters: dict   # its module's namespace, whose ``launches`` counts the launches
 
 
 def supports(cfg: STFTConfig, window) -> bool:
@@ -99,15 +110,15 @@ def _ptr(t):
 
 
 class Launch:
-    """The C entry point ``entry`` bound to what stays fixed over a run:
+    """``kernel``'s C entry point bound to what stays fixed over a run:
     the target, window, envelope, config, precision and scalars (the
     entry's trailing arguments before the stream) are checked, and the
     tables, the scratch and the fixed arguments made, once.  Each call
-    launches one iteration on the current stream, calling ``count()``
-    first, and returns ``(x, mag or None, state)``; it does not check
-    ``x_pad`` and ``state`` (:meth:`check` does)."""
+    launches one iteration on the current stream, counting it first, and
+    returns ``(x, mag or None, state)``; it does not check ``x_pad`` and
+    ``state`` (:meth:`check` does)."""
 
-    def __init__(self, entry: str, count, target, window, inv_env, cfg: STFTConfig, precision,
+    def __init__(self, kernel: Kernel, target, window, inv_env, cfg: STFTConfig, precision,
                  with_mag: bool, scalars):
         B, T, n_bins = target.shape
         n, self.dev = cfg.n_fft, target.device
@@ -138,7 +149,7 @@ class Launch:
                   scratch((B, T, 2 * f_pad), torch.bfloat16, inv != "highest"),
                   scratch((B, T, 2 * f_pad), torch.bfloat16, dft.needs_lo(inv)))
         self.held = (target, window, inv_env, tab, frames, planes)
-        self.fn, self.count, self.entry = getattr(_build.library(), entry), count, entry
+        self.fn, self.kernel = getattr(_build.library(), kernel.entry), kernel
         self.mag_shape = (B, T, n_bins) if with_mag else None
         self.head = (target.data_ptr(), window.data_ptr(),
                      *(t.data_ptr() for t in tab), inv_env.data_ptr(), frames.data_ptr())
@@ -149,23 +160,18 @@ class Launch:
     def check(self, **tensors):
         """Raise unless each named tensor (x_pad, state, target, window,
         inv_env) has its type and shape on the target's device."""
-        for name, t in tensors.items():
-            dtype, shape = self.expect[name]
-            if t.device != self.dev or t.dtype != dtype or tuple(t.shape) != shape:
-                raise ValueError(
-                    f"{name}: expected {dtype} {shape} on {self.dev}, got "
-                    f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                )
+        _build.check_tensors(self.dev, ((name, t, *self.expect[name])
+                                        for name, t in tensors.items()))
 
     def __call__(self, x_pad, state):
         x_pad, state = x_pad.contiguous(), state.contiguous()
         x_out, state_out = torch.empty_like(x_pad), torch.empty_like(state)
         mag = None if self.mag_shape is None else torch.empty(self.mag_shape, device=self.dev)
-        self.count()
+        self.kernel.counters["launches"] += 1
         code = self.fn(x_pad.data_ptr(), x_out.data_ptr(), state.data_ptr(),
                        state_out.data_ptr(), *self.head, _ptr(mag), *self.tail,
                        torch.cuda.current_stream(self.dev).cuda_stream)
-        _build.check(code, self.entry)
+        _build.check(code, self.kernel.entry)
         return x_out, mag, state_out
 
 
@@ -187,23 +193,55 @@ class Iteration(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_x, g_state, *_g_mag):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
-        with torch.enable_grad():
-            outs, _mag = ctx.replay(*inputs)
-            # an output that depends on no input that needs a gradient has none
-            pairs = [(o, g) for o, g in zip(outs, (g_x, g_state)) if o.requires_grad]
-            wrt = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
-                                             allow_unused=True) if pairs else [None] * len(wrt))
-        return (None, None, *(next(grads) if t.requires_grad else None for t in inputs))
+        grads = replay(lambda *t: ctx.replay(*t)[0], ctx.saved_tensors,
+                       ctx.needs_input_grad[2:], (g_x, g_state))
+        return (None, None, *grads)
 
 
-def iterate_once(step, replay, x_pad, state, target, window, inv_env, with_mag):
-    """``(x, mag or None, state)`` of one :class:`Iteration`; one
-    ``specinv.launch`` span covers the dispatch (the kernel's, or on the
-    CPU the plain version's)."""
-    with span("launch"):
-        x, state_out, *mag = Iteration.apply(step, replay, x_pad, state, target, window,
-                                             inv_env)
-    return x, (mag[0] if with_mag else None), state_out
+def bind(kernel: Kernel, target, window, inv_env, scalar: float, cfg: STFTConfig, extra,
+         precision, with_mag: bool):
+    """``(iteration, run)``: a function of ``(x_pad, state)`` that runs one
+    iteration of ``kernel`` with everything else bound, and the kernel's
+    :class:`Launch` (None for tensors on the CPU), whose checks, tables and
+    scratch are made once, here.  ``(scalar, *extra)`` are the entry
+    point's trailing arguments; ``precision`` is checked by the caller.
+    Each iteration is one ``specinv.launch`` span; it does not check
+    ``x_pad`` and ``state``."""
+    geo = make_geometry(cfg, target.shape[-2])
+    run = None
+    if target.device.type == "cpu":
+        def step(x_pad, state, *t):
+            (x, state), mag = kernel.twin((x_pad, state), *t, scalar, cfg, geo, *extra, precision)
+            return x, (mag if with_mag else None), state
+    else:
+        if not supports(cfg, window):
+            raise ValueError(f"the direct-DFT {kernel.name} kernel needs {UNSUPPORTED} "
+                             f"(n_fft={cfg.n_fft}, hop={cfg.hop_length})")
+        run = Launch(kernel, target, window, inv_env, cfg, precision, with_mag,
+                     (scalar, *extra))
+
+        def step(x_pad, state, *_):
+            return run(x_pad, state)
+
+    def twin(x, s, *rest):
+        return kernel.twin((x, s), *rest, scalar, cfg, geo, *extra, "highest")
+
+    def iteration(x_pad, state):
+        with span("launch"):
+            x, state_out, *mag = Iteration.apply(step, twin, x_pad, state, target, window,
+                                                 inv_env)
+        return x, (mag[0] if with_mag else None), state_out
+
+    return iteration, run
+
+
+def fused_iteration(kernel: Kernel, x_pad, state, target, window, inv_env, scalar: float,
+                    cfg: STFTConfig, extra, precision, with_mag: bool):
+    """One iteration of ``kernel`` -> ``(x_pad, mag or None, state)``, with
+    ``x_pad`` and ``state`` checked: the ``fused_*_iteration`` wrappers'
+    dispatch."""
+    iteration, run = bind(kernel, target, window, inv_env, scalar, cfg, extra, precision,
+                          with_mag)
+    if run is not None:
+        run.check(x_pad=x_pad, state=state)
+    return iteration(x_pad, state)

@@ -1,13 +1,15 @@
-"""What the whole-run kernels share: the config check, the launch queue, the
-return contract and the gradient replay.
+"""The whole-run kernels' wrapper, written once for both algorithms: the
+config check, the launch queue, the plain loop, the CPU/card dispatch and
+the autograd Function.
 
 ``csrc/fullrun.cuh`` is one iteration engine (a frame launch and an OLA
 launch) with an algorithm-specific middle; ``gl_fullrun`` and
-``admm_fullrun`` wrap its two C entry points, each in two dispatches: the
-whole run (``fused_*_run``) and one raw iteration (``fused_*_iteration``,
-the sequence-parallel path's).  Both keep the signal ``x_pad (B, lp)`` in
-padded coordinates and the state and target as ``(B, T, F)`` planes in
-natural bin order, and return ``x[, state][, mag][, stats]``.
+``admm_fullrun`` each describe one of its two C entry points as a
+:class:`Kernel`, whose methods are their public functions.  The signal
+``x_pad (B, lp)`` lies in padded coordinates, the state and target are ``(B,
+T, F)`` planes in natural bin order.  Gradients flow through :class:`Run`,
+whose backward replays the plain loop (:func:`plain`) under autograd, as
+the JAX package's ``custom_vjp`` replays its XLA twin.
 
 Below, ``valid`` is always an explicit frame count in ``[0, T]`` (0: no
 frame is valid), and an ``inv_env`` of None means the raw overlap-add: no
@@ -21,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ...config import STFTConfig
-from ...models._kernel_driver import PaddedGeometry, make_geometry, raw_geometry
+from ...utils.profiling import span
+from ..twins import PaddedGeometry, make_geometry, raw_geometry, replay
 from . import _build
 from .fft import scales, supported_size, twiddles
 
@@ -119,29 +122,18 @@ def geometry(cfg: STFTConfig, T: int, inv_env) -> PaddedGeometry:
     return raw_geometry(cfg, T) if inv_env is None else make_geometry(cfg, T)
 
 
-def check_config(cfg: STFTConfig, window, n_iters: int, algo: str) -> None:
-    """Raise unless the kernels take ``cfg`` and ``window`` and ``n_iters >= 1``."""
-    if not supports(cfg, window):
-        raise ValueError(
-            f"the {algo} kernel needs {UNSUPPORTED} (n_fft={cfg.n_fft}, "
-            f"hop={cfg.hop_length})"
-        )
-    if n_iters < 1:
-        raise ValueError(f"n_iters must be >= 1, got {n_iters}")
-
-
 def eval_sums(mag, target, valid: int):
     """Plain ``[sum (|S|-tgt)^2, sum |S|^2]`` over the first ``valid`` frames."""
     m, tg = mag[:, :valid], target[:, :valid]
     return torch.stack([torch.sum((m - tg) ** 2), torch.sum(m * m)])
 
 
-def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
+def launch(kernel, counter: str, x_pad, state, target, window, inv_env, scalar,
            cfg: STFTConfig, n_iters, with_mag, with_loss, valid):
-    """Queue ``n_iters`` iterations of the C entry point ``entry`` on the
-    current stream, calling ``count(many_wave)`` before each (whether its
-    frame launch takes the many-wave plan); returns ``(x, state, mag,
-    stats)``."""
+    """Queue ``n_iters`` iterations of ``kernel``'s C entry point on the
+    current stream, counting each in its ``counter`` and, where its frame
+    launch takes the many-wave plan, in ``many_wave_launches``; returns
+    ``(x, state, mag, stats)``."""
     B, T, n_bins = target.shape
     n, hop = cfg.n_fft, cfg.hop_length
     geo = geometry(cfg, T, inv_env)
@@ -156,12 +148,7 @@ def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
     ]
     if inv_env is not None:
         checks.append(("inv_env", inv_env, torch.float32, (geo.lp,)))
-    for name, t, dtype, shape in checks:
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    _build.check_tensors(dev, checks)
     target, window = target.contiguous(), window.contiguous()
     if inv_env is not None:
         inv_env = inv_env.contiguous()
@@ -175,10 +162,11 @@ def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
     tw = twiddles(n, dev, torch.complex128)
     stream = torch.cuda.current_stream(dev).cuda_stream
     plan = frame_plan(B * T, n)
-    fn = getattr(_build.library(), entry)
+    fn = getattr(_build.library(), kernel.entry)
     for it in range(n_iters):
         last = it == n_iters - 1
-        count(plan.many_wave)
+        kernel.counters[counter] += 1
+        kernel.counters["many_wave_launches"] += plan.many_wave
         code = fn(
             x_a.data_ptr(), x_b.data_ptr(), state.data_ptr(), target.data_ptr(),
             window.data_ptr(), tw.data_ptr(),
@@ -190,35 +178,131 @@ def launch(entry: str, count, x_pad, state, target, window, inv_env, scalar,
             float(scalar), fscale, iscale, valid, plan.frames_per_block, plan.threads,
             plan.smem, stream,
         )
-        _build.check(code, entry)
+        _build.check(code, kernel.entry)
         x_a, x_b = x_b, x_a
     stats = partial.sum(dim=(0, 1)) if with_loss else None
     return x_a, state, mag, stats
 
 
-def apply(function, x_pad, state, target, window, inv_env, scalar, cfg: STFTConfig,
-          n_iters: int, emit_state: bool, with_mag: bool, with_loss: bool, valid: int, count):
-    """Run a kernel's ``autograd.Function`` and return ``x[, state][, mag][,
-    stats]``."""
-    x, state_out, *extras = function.apply(
-        x_pad, state, target, window, inv_env, float(scalar), cfg, n_iters, with_mag,
-        with_loss, valid, count,
-    )
-    mag = extras.pop(0) if with_mag else None
-    stats = extras.pop(0) if with_loss else None
-    return outputs(x, state_out, mag, stats, emit_state, with_mag, with_loss)
+def plain(twin, x_pad, state, target, window, inv_env, scalar, cfg: STFTConfig, n_iters: int,
+          emit_state: bool = False, with_mag: bool = False, with_loss: bool = False,
+          valid_t: int = 0):
+    """``n_iters`` plain iterations of an algorithm's ``twin``; ``valid_t``
+    is an explicit frame count and an ``inv_env`` of None stops each at the
+    raw overlap-add."""
+    geo = geometry(cfg, target.shape[-2], inv_env)
+    carry, mag = (x_pad, state), None
+    for _ in range(n_iters):
+        carry, mag = twin(carry, target, window, inv_env, scalar, cfg, geo, valid_t)
+    stats = eval_sums(mag, target, valid_t) if with_loss else None
+    return outputs(*carry, mag, stats, emit_state, with_mag, with_loss)
 
 
-def replay_backward(ctx, reference, g_x, g_state):
-    """The backward of a kernel's ``autograd.Function``: replay its plain
-    version under autograd from the saved inputs ``(x_pad, state, target,
-    window, inv_env)`` (``inv_env`` may be None: the raw dispatch) and
-    ``ctx.scalar/cfg/n_iters/valid_t``."""
-    inputs = [t if t is None else t.detach().requires_grad_(need)
-              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-    wrt = [t for t in inputs if t is not None and t.requires_grad]
-    with torch.enable_grad():
-        x, state = reference(*inputs, ctx.scalar, ctx.cfg, ctx.n_iters,
-                             emit_state=True, valid_t=ctx.valid_t)
-        grads = iter(torch.autograd.grad((x, state), wrt, (g_x, g_state), allow_unused=True))
-    return [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+class Run(torch.autograd.Function):
+    """Kernel forward; backward replays the plain loop under autograd."""
+
+    @staticmethod
+    def forward(ctx, kernel, x_pad, state, target, window, inv_env, scalar, cfg, n_iters,
+                with_mag, with_loss, valid, counter):
+        x, state_out, mag, stats = launch(
+            kernel, counter, x_pad, state, target, window, inv_env, scalar, cfg, n_iters,
+            with_mag, with_loss, valid,
+        )
+        ctx.save_for_backward(x_pad, state, target, window, inv_env)
+        ctx.args = kernel.twin, scalar, cfg, n_iters, valid
+        extras = [t for t in (mag, stats) if t is not None]
+        ctx.mark_non_differentiable(*extras)
+        return (x, state_out, *extras)
+
+    @staticmethod
+    def backward(ctx, g_x, g_state, *_g_extras):
+        twin, scalar, cfg, n_iters, valid = ctx.args
+
+        def loop(*inputs):
+            return plain(twin, *inputs, scalar, cfg, n_iters, emit_state=True, valid_t=valid)
+
+        grads = replay(loop, ctx.saved_tensors, ctx.needs_input_grad[1:6], (g_x, g_state))
+        return (None, *grads, None, None, None, None, None, None, None)
+
+
+class Kernel:
+    """One algorithm on the engine: its name (as errors give it), its C
+    entry point, its plain ``twin`` (one iteration: ``twin(state, target,
+    window, inv_env, scalar, cfg, geo, valid) -> (state, mag)``) and
+    ``counters``, its module's namespace, where ``launches`` and
+    ``iteration_launches`` count the whole run's and the raw dispatch's
+    launches and ``many_wave_launches`` those on the many-wave plan.  Its
+    methods are the algorithm module's public functions: ``state`` is the
+    algorithm's plane (Griffin-Lim's momentum ``pre``, ADMM's ``Y``),
+    ``scalar`` its parameter (``lr``, ``rho``), ``mag`` its magnitude."""
+
+    def __init__(self, name: str, entry: str, twin, counters: dict):
+        self.name, self.entry, self.twin, self.counters = name, entry, twin, counters
+
+    def run(self, x_pad, state, target, window, inv_env, scalar, cfg: STFTConfig,
+            n_iters: int, emit_state: bool = False, with_mag: bool = False,
+            with_loss: bool = False, valid_t: int = 0):
+        """Run ``n_iters`` iterations -> final ``x_pad (B, lp)``.
+
+        With ``emit_state`` the final state plane is returned too; with
+        ``with_mag`` the magnitude of the LAST iteration ``(B, T, F)``; with
+        ``with_loss`` the eval sums ``[sum (mag-tgt)^2, sum mag^2]`` of the
+        last iteration over the first ``valid_t`` frames (0 = all).  Return
+        order ``x[, state][, mag][, stats]``, as in the JAX driver.  One
+        ``specinv.launch`` span covers the dispatch.
+        """
+        with span("launch"):
+            return self._dispatch("launches", x_pad, state, target, window, inv_env, scalar,
+                                  cfg, n_iters, emit_state, with_mag, with_loss,
+                                  valid_frames(valid_t, target.shape[-2]))
+
+    def iteration(self, x_pad, state, target, window, scalar, cfg: STFTConfig,
+                  with_mag: bool = False, with_loss: bool = False, valid_t=None):
+        """One raw iteration, one kernel launch -> ``(x, state[, mag][,
+        stats])``, the counterpart of the JAX ``fused_*_iteration4`` with
+        ``normalize=False``.
+
+        The signal is the raw overlap-add of the windowed frames, ``(B,
+        (T-1)*hop + n_fft)``, with no envelope and no re-pad: times the
+        envelope and re-padded it is one iteration of :meth:`run`.
+        ``valid_t`` is the number of frames the eval sums cover: None for
+        all ``T``, 0 for none (a shard of padding rows; the whole run reads
+        0 as all).
+        """
+        return self._dispatch("iteration_launches", x_pad, state, target, window, None, scalar,
+                              cfg, 1, True, with_mag, with_loss,
+                              valid_count(valid_t, target.shape[-2]))
+
+    def run_reference(self, x_pad, state, target, window, inv_env, scalar, cfg: STFTConfig,
+                      n_iters: int, emit_state: bool = False, with_mag: bool = False,
+                      with_loss: bool = False, valid_t: int = 0):
+        """Plain PyTorch version of :meth:`run` (same contract)."""
+        return plain(self.twin, x_pad, state, target, window, inv_env, scalar, cfg, n_iters,
+                     emit_state, with_mag, with_loss, valid_frames(valid_t, target.shape[-2]))
+
+    def iteration_reference(self, x_pad, state, target, window, scalar, cfg: STFTConfig,
+                            with_mag: bool = False, with_loss: bool = False, valid_t=None):
+        """Plain PyTorch version of :meth:`iteration` (same contract)."""
+        return plain(self.twin, x_pad, state, target, window, None, scalar, cfg, 1, True,
+                     with_mag, with_loss, valid_count(valid_t, target.shape[-2]))
+
+    def _dispatch(self, counter, x_pad, state, target, window, inv_env, scalar,
+                  cfg: STFTConfig, n_iters: int, emit_state: bool, with_mag: bool,
+                  with_loss: bool, valid: int):
+        """The plain loop on a CPU tensor, else :class:`Run`, counting its
+        launches in ``counter``: ``x[, state][, mag][, stats]``."""
+        if x_pad.device.type == "cpu":
+            return plain(self.twin, x_pad, state, target, window, inv_env, scalar, cfg, n_iters,
+                         emit_state, with_mag, with_loss, valid)
+        if not supports(cfg, window):
+            raise ValueError(f"the {self.name} kernel needs {UNSUPPORTED} (n_fft={cfg.n_fft}, "
+                             f"hop={cfg.hop_length})")
+        if n_iters < 1:
+            raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+        x, state_out, *extras = Run.apply(
+            self, x_pad, state, target, window, inv_env, float(scalar), cfg, n_iters, with_mag,
+            with_loss, valid, counter,
+        )
+        mag = extras.pop(0) if with_mag else None
+        stats = extras.pop(0) if with_loss else None
+        return outputs(x, state_out, mag, stats, emit_state, with_mag, with_loss)

@@ -15,8 +15,8 @@ raises.  The launch is one thread-block cluster per stream; :func:`plan`
 says how the ``R = la + 1`` in-flight frames spread over its CTAs and where
 their state lives (``csrc/rtisi_fused.cu`` explains the design).  Gradients
 flow through a ``torch.autograd.Function`` whose backward replays the plain
-twin (``models/_kernel_driver.rtisi_steps_twin``) under autograd, as the JAX
-package's ``custom_vjp`` replays ``_multi_twin``.
+twin (``ops/twins.rtisi_steps_twin``) under autograd, as the JAX package's
+``custom_vjp`` replays ``_multi_twin``.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ from typing import NamedTuple
 import torch
 
 from ...config import STFTConfig
-from ...models._kernel_driver import RTISIWindows, rtisi_steps_twin
 from ...utils.profiling import span
+from ..twins import RTISIWindows, replay, rtisi_steps_twin
 from . import _build, _fullrun
 from .fft import scales, twiddles
 
@@ -111,19 +111,13 @@ def fused_rtisi_steps_reference(keeped, update, pre, target, windows: RTISIWindo
 def _check(keeped, update, pre, target, windows, cfg: STFTConfig):
     B, R, n = update.shape
     k = target.shape[-2] - R + 1
-    dev = update.device
-    for name, t, dtype, shape in (
+    _build.check_tensors(update.device, (
         ("keeped", keeped, torch.float32, (B, (n - 1) // cfg.hop_length, n)),
         ("update", update, torch.float32, (B, R, n)),
         ("pre", pre, torch.complex64, (B, R, cfg.num_freqs)),
         ("target", target, torch.float32, (B, k + R - 1, cfg.num_freqs)),
         *((f"windows.{f}", w, torch.float32, (n,)) for f, w in zip(windows._fields, windows)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    ))
     if n != cfg.n_fft or k < 1:
         raise ValueError(f"n_fft {n} (config {cfg.n_fft}) and k = {k} steps: need k >= 1")
 
@@ -173,14 +167,11 @@ class _RTISISteps(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads_out):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = fused_rtisi_steps_reference(
-                *inputs[:4], RTISIWindows(*inputs[4:]), ctx.lr, ctx.cfg, ctx.max_iter)
-            wrt = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, grads_out, allow_unused=True))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
+        def twin(*t):
+            return rtisi_steps_twin(*t[:4], RTISIWindows(*t[4:]), ctx.lr, ctx.cfg, ctx.max_iter)
+
+        grads = replay(twin, ctx.saved_tensors, ctx.needs_input_grad[:8], grads_out)
+        return (*grads, None, None, None)
 
 
 def fused_rtisi_steps(keeped, update, pre, target, windows: RTISIWindows, lr,

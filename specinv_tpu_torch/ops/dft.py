@@ -5,8 +5,8 @@ Counterpart of the plain parts of ``specinv_tpu/ops/pallas/gl_fused.py``:
 the DFT tables (``_dft_tables``), the bf16 hi/lo split (``_split_bf16``),
 the product schemes (``_dot3`` / ``_dot3_pre``, ``needs_lo``,
 ``split_schemes``), and the precision rule of
-``specinv_tpu/ops/fourier.check_precision``.  ``models/_kernel_driver`` and
-the kernel wrappers under ``ops/cuda`` both import it.
+``specinv_tpu/ops/fourier.check_precision``.  ``ops/twins`` and the kernel
+wrappers under ``ops/cuda`` both import it.
 
 The schemes, with ``a`` the data operand and ``b`` the table, ``hi =
 bf16(x)`` and ``lo = bf16(x - hi)`` (round to nearest):

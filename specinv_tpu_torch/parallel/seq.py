@@ -51,7 +51,7 @@ cotangent over the ranks that use it (the seq axis, and the data axis under
 exchanges are ``collective.shift`` (backward: the reverse exchange) and the
 final gathers ``collective.all_gather`` (backward: this rank's slice).  On
 ``'kernel'`` each launch's backward replays its plain twin under autograd
-(``ops/cuda/_fullrun.replay_backward``), as JAX's ``custom_vjp`` replays
+(``ops/cuda/_fullrun.Run``, ``ops/twins.replay``), as JAX's ``custom_vjp`` replays
 ``gl_xla_twin4`` / ``admm_xla_twin4``; no backward kernel.  The stop rule's
 sums run on detached values, so ``mode='fori'`` with tol > 0 stays
 differentiable.  Every rank must call ``backward`` on the same loss of the
@@ -69,12 +69,13 @@ import torch.nn.functional as F
 
 from ..config import STFTConfig
 from ..models.common import prepare_spec, restore_output
-from ..models.griffin_lim import PROJ_EPS, magnitude_project
+from ..models.griffin_lim import magnitude_project
 from ..models.phase_init import phase_init_tm
 from ..ops import fourier
 from ..ops.cuda import admm_fullrun, gl_fullrun
 from ..ops.framing import frame, ola_envelope, overlap_add, pad_center
 from ..ops.stft import istft
+from ..ops.twins import PROJ_EPS
 from ..utils.collective import all_gather, all_reduce_sum, replicated, shift
 from ..utils.runner import iterate
 from . import mesh as mesh_mod

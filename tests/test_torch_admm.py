@@ -27,7 +27,8 @@ import torch
 
 import specinv_tpu as si
 import specinv_tpu_torch as st
-from specinv_tpu_torch.ops.cuda import admm_fullrun
+from specinv_tpu_torch.models import common
+from specinv_tpu_torch.ops.cuda import _fullrun, admm_fullrun
 
 from .helpers import make_signal, torch_stft
 
@@ -198,22 +199,22 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
     """The autograd.Function around the kernel: forward from the launch,
     backward from the plain twin.  With the launch swapped for its plain
     version on the CPU, its gradients equal plain autograd's."""
-    def cpu_launch(x_pad, Y, target, window, inv_env, rho, cfg, n_iters, with_mag,
-                   with_loss, valid, count):
+    def cpu_launch(kernel, counter, x_pad, Y, target, window, inv_env, rho, cfg, n_iters,
+                   with_mag, with_loss, valid):
         x, y, mag = admm_fullrun.fused_admm_run_reference(
             x_pad, Y, target, window, inv_env, rho, cfg, n_iters, emit_state=True,
             with_mag=True, valid_t=valid)
         return x, y, (mag if with_mag else None), None
 
     from specinv_tpu_torch.config import canonicalize
-    from specinv_tpu_torch.models import _kernel_driver as kd
+    from specinv_tpu_torch.ops import twins
 
     cfg, w = canonicalize(65, np.float64, hop_length=32)
     T = 12
-    geo = kd.make_geometry(cfg, T)
+    geo = twins.make_geometry(cfg, T)
     rng = np.random.default_rng(0)
     win = torch.from_numpy(np.hanning(129)[:-1])
-    inv_env = kd.make_inv_env(cfg, win, T, geo)
+    inv_env = twins.make_inv_env(cfg, win, T, geo)
     tgt = torch.from_numpy(np.abs(rng.standard_normal((1, T, 65)))).requires_grad_(True)
     y0 = torch.from_numpy(rng.standard_normal((1, T, 65)) + 1j * rng.standard_normal((1, T, 65)))
     y0.requires_grad_(True)
@@ -227,11 +228,11 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
         g_plain = torch.autograd.grad(loss(admm_fullrun.fused_admm_run_reference(
             x0, y0, tgt, win, inv_env, 0.3, cfg, 3, emit_state=True, valid_t=valid_t)),
             (x0, y0, tgt))
-        monkeypatch.setattr(admm_fullrun, "_launch", cpu_launch)
+        monkeypatch.setattr(_fullrun, "launch", cpu_launch)
         # the Function takes the frame count itself (0 above is all T)
-        x, y, _mag = admm_fullrun._ADMMRun.apply(
-            x0, y0, tgt, win, inv_env, 0.3, cfg, 3, True, False, valid_t or T,
-            admm_fullrun._count)
+        x, y, _mag = _fullrun.Run.apply(
+            admm_fullrun.KERNEL, x0, y0, tgt, win, inv_env, 0.3, cfg, 3, True, False,
+            valid_t or T, "launches")
         g_fn = torch.autograd.grad(loss((x, y)), (x0, y0, tgt))
         for a, b in zip(g_fn, g_plain):
             torch.testing.assert_close(a, b, rtol=1e-10, atol=0)
@@ -240,7 +241,6 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
 def test_backend_dispatch(monkeypatch):
     from specinv_tpu_torch.config import canonicalize
 
-    tgl = importlib.import_module("specinv_tpu_torch.models.griffin_lim")
     mag = torch.from_numpy(_mag(make_signal((4000,)), 256))
     taken = []
     for name in ("run_tm", "run_tm_kernel"):
@@ -251,7 +251,8 @@ def test_backend_dispatch(monkeypatch):
     st.ADMM(mag, max_iter=2, verbose=False, backend="kernel")
     assert taken == ["run_tm", "run_tm_kernel"]  # CPU 'auto' is the literal path
     cfg, w = canonicalize(1025, np.float32, hop_length=512)
-    assert tgl.resolve_backend("auto", cfg, torch.from_numpy(w), torch.device("cuda")) == "kernel"
+    cuda = torch.device("cuda")
+    assert common.resolve_backend("auto", cfg, torch.from_numpy(w), cuda) == "kernel"
     odd = torch.rand(201, 20)  # n_fft 400: no power of two
     with pytest.raises(ValueError, match="power of two"):
         st.ADMM(odd, max_iter=2, verbose=False, backend="kernel")
@@ -300,7 +301,7 @@ def test_modes_agree_and_early_stop_freezes():
 @pytest.mark.parametrize("backend", ["matmul", "matmul4"])
 def test_xla_dft_backends_name_the_ports_counterpart(backend):
     """As for griffin_lim: JAX's ADMM runs the XLA lowering, the port raises
-    naming 'fft' and 'dft' (``griffin_lim.resolve_backend``, shared)."""
+    naming 'fft' and 'dft' (``common.resolve_backend``, shared)."""
     mag = _mag(make_signal((4000,)), 256).astype(np.float32)  # matmul4: float32
     assert np.isfinite(np.asarray(si.ADMM(mag, max_iter=2, verbose=False,
                                           backend=backend))).all()

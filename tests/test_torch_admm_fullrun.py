@@ -32,7 +32,7 @@ from specinv_tpu.ops.framing import pad_center
 from specinv_tpu.ops.pallas import admm_fused4, fft4, gl_fullrun4
 from specinv_tpu_torch import convert
 from specinv_tpu_torch.config import canonicalize as tcanon
-from specinv_tpu_torch.models import _kernel_driver as kd
+from specinv_tpu_torch.ops import twins
 from specinv_tpu_torch.ops.cuda import admm_fullrun
 
 N_FFT, B, ITERS = 512, 2, 5
@@ -92,12 +92,12 @@ def _jax_run(jc, w, T, geo, x0, y_re, y_im, tgt_p, rho, lane, **flags):
 def _port_inputs(tc, w, T, x0, y_re, y_im, tgt_p, dtype=torch.float32):
     x, y, tgt = convert.state_from_jax(
         x0, np.asarray(y_re), np.asarray(y_im), np.asarray(tgt_p), N_FFT, T)
-    tgeo = kd.make_geometry(tc, T)
+    tgeo = twins.make_geometry(tc, T)
     assert x.shape[-1] == tgeo.lp
     win = torch.from_numpy(w).to(dtype)
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
     return (torch.tensor(x, dtype=dtype), torch.tensor(y, dtype=cdt),
-            torch.tensor(tgt, dtype=dtype), win, kd.make_inv_env(tc, win, T, tgeo))
+            torch.tensor(tgt, dtype=dtype), win, twins.make_inv_env(tc, win, T, tgeo))
 
 
 def _close_plane(ours, ref, band):
@@ -142,9 +142,9 @@ def test_valid_t_mask_and_outputs():
         *inputs, 0.1, tc, 2, emit_state=True, with_mag=True, with_loss=True, valid_t=v)
     assert bool((y2[:, v:] == 0).all()) and bool((y2[:, :v] != 0).any())
     # the same two masked iterations of the plain twin by hand
-    geo_t = kd.make_geometry(tc, T)
-    state_1, _ = kd.admm_twin(inputs[:2], *inputs[2:5], 0.1, tc, geo_t, v)
-    (xr, yr), _ = kd.admm_twin(state_1, *inputs[2:5], 0.1, tc, geo_t, v)
+    geo_t = twins.make_geometry(tc, T)
+    state_1, _ = twins.admm_twin(inputs[:2], *inputs[2:5], 0.1, tc, geo_t, v)
+    (xr, yr), _ = twins.admm_twin(state_1, *inputs[2:5], 0.1, tc, geo_t, v)
     torch.testing.assert_close(x2, xr, rtol=0, atol=0)
     torch.testing.assert_close(y2, yr, rtol=0, atol=0)
     assert not torch.equal(x2, x_all)

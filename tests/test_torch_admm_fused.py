@@ -31,8 +31,10 @@ import specinv_tpu as si
 import specinv_tpu_torch as st
 from specinv_tpu.ops.pallas import admm_fused as j_admm_fused
 from specinv_tpu_torch import convert
-from specinv_tpu_torch.models import _kernel_driver as kd
+from specinv_tpu_torch.ops import twins
 from specinv_tpu_torch.ops.cuda import admm_fused
+from specinv_tpu_torch.ops.framing import pad_center
+from specinv_tpu_torch.ops.stft import istft
 
 from .test_torch_gl_fused import (
     B, CASES, HIGH, HIGHEST, HOP, N_FFT, _close, _setup, _spec_pair, _twin_vjp_case,
@@ -96,7 +98,7 @@ def test_default_tier_matches_numpy_one_bf16_pass():
         rx, rmag, ry = numpy_default_iteration(
             x.numpy(), y.numpy().astype(np.complex128), tgt.numpy().astype(np.float64),
             win.numpy().astype(np.float64), env.numpy().astype(np.float64), RHO, tc,
-            kd.make_geometry(tc, T), admm=True, valid_t=T - drop)
+            twins.make_geometry(tc, T), admm=True, valid_t=T - drop)
         _close(ox.numpy(), rx, 2e-4, f"{case} x")
         _close(omag.numpy(), rmag, 1e-5, f"{case} |R|")
         _close(oy.numpy(), ry, 2e-4, f"{case} Y")
@@ -154,7 +156,7 @@ def test_precision_pairs_raise():
 
 def test_iteration_gradient_is_the_highest_twin():
     _, tc, _, T, _, _, (x, y, tgt, win, env) = _setup({})
-    geo = kd.make_geometry(tc, T)
+    geo = twins.make_geometry(tc, T)
     rng = np.random.default_rng(1)
     cx = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
     cy = torch.from_numpy(rng.standard_normal(y.shape).astype(np.complex64))
@@ -167,7 +169,7 @@ def test_iteration_gradient_is_the_highest_twin():
         x0 = x.clone().requires_grad_(True)
         t0 = tgt.clone().requires_grad_(True)
         if run == "twin":
-            (xo, yo), _ = kd.admm_dft_twin((x0, y), t0, win, env, RHO, tc, geo, T - 2, "highest")
+            (xo, yo), _ = twins.admm_dft_twin((x0, y), t0, win, env, RHO, tc, geo, T - 2, "highest")
         else:
             xo, _mag, yo = admm_fused.fused_admm_iteration(x0, y, t0, win, env, RHO, tc, T - 2,
                                                            "bf16x2t")
@@ -190,8 +192,8 @@ def test_twin_vjp_matches_jax_twin_f64():
     (jgx, _, _), jgt = vjp((jnp.asarray(cx), jnp.asarray(cp[0]), jnp.asarray(cp[1])))
     x.requires_grad_(True)
     tgt.requires_grad_(True)
-    (xo, yo), _ = kd.admm_dft_twin((x, y), tgt, win, env, RHO, tc, kd.make_geometry(tc, T), T - 3,
-                                   "highest")
+    (xo, yo), _ = twins.admm_dft_twin((x, y), tgt, win, env, RHO, tc, twins.make_geometry(tc, T),
+                                      T - 3, "highest")
     lp, F = x.shape[-1], tgt.shape[-1]
     cy = torch.complex(*(torch.from_numpy(c[:, :T, :F]) for c in cp))
     gx, gt = torch.autograd.grad((xo, yo), (x, tgt), (torch.from_numpy(cx[:, :lp]), cy))
@@ -203,7 +205,7 @@ def test_dft_path_gradient_is_the_highest_twin_chain():
     """A gradient through ADMM's 'dft' path (run_tm_dft, 3 iterations at
     'highest') equals plain autograd through 3 calls of the twin."""
     _, tc, _, T, _, _, (_, y0, tgt, win, _) = _setup({})
-    geo = kd.make_geometry(tc, T)
+    geo = twins.make_geometry(tc, T)
     c = torch.from_numpy(np.random.default_rng(2).standard_normal((B, geo.l_out)).astype(np.float32))
     grads = []
     for how in ("path", "twin"):
@@ -211,10 +213,10 @@ def test_dft_path_gradient_is_the_highest_twin_chain():
         if how == "path":
             y = tadmm.run_tm_dft(t, y0, win, RHO, 0.0, tc, max_iter=3, precision="highest")
         else:
-            env = kd.make_inv_env(tc, win, T, geo)
-            state = (tadmm.pad_center(tadmm.istft(y0, tc, win), tc), y0)
+            env = twins.make_inv_env(tc, win, T, geo)
+            state = (pad_center(istft(y0, tc, win), tc), y0)
             for _ in range(3):
-                state, _mag = kd.admm_dft_twin(state, t, win, env, RHO, tc, geo, T, "highest")
+                state, _mag = twins.admm_dft_twin(state, t, win, env, RHO, tc, geo, T, "highest")
             y = state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
         grads.append(torch.autograd.grad((y * c).sum(), t)[0])
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6 * float(grads[1].abs().max()))

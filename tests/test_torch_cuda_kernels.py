@@ -18,9 +18,9 @@ import torch
 
 import specinv_tpu_torch as st
 from specinv_tpu_torch.config import canonicalize
-from specinv_tpu_torch.models import _kernel_driver as kd
 from specinv_tpu_torch.models.phase_init import phase_init_tm
 from specinv_tpu_torch.ops import stft as stft_ops
+from specinv_tpu_torch.ops import twins
 from specinv_tpu_torch.ops.cuda import (
     _fullrun, admm_fullrun, admm_fused, fft, gl_fullrun, gl_fused, rtisi_fused,
 )
@@ -59,7 +59,7 @@ def _state(dev, n_fft=512, hop=128, batch=2, n_samples=7800, **stft_kwargs):
     seed = phase_init_tm(mag, cfg).to(torch.complex64)
     T = mag.shape[-2]
     x_pad = pad_center(stft_ops.istft(seed, cfg, win), cfg).contiguous()
-    inv_env = kd.make_inv_env(cfg, win, T, kd.make_geometry(cfg, T))
+    inv_env = twins.make_inv_env(cfg, win, T, twins.make_geometry(cfg, T))
     return cfg, (x_pad, seed, mag, win, inv_env)
 
 
@@ -544,14 +544,14 @@ def test_raw_dispatch_is_the_normalised_one_before_its_envelope(dev, name):
     samples), the state bit for bit too; and each counts one launch."""
     mod, it, run, scalar, _ = RAW[name]
     cfg, (x, s, tgt, win, env) = _state(dev)
-    geo = kd.make_geometry(cfg, tgt.shape[-2])
+    geo = twins.make_geometry(cfg, tgt.shape[-2])
     before = (mod.iteration_launches, mod.launches)
     xr, sr = getattr(mod, it)(x, s, tgt, win, scalar, cfg)
     xw, sw = getattr(mod, run)(x, s, tgt, win, env, scalar, cfg, 1, emit_state=True)
     torch.cuda.synchronize()
     assert (mod.iteration_launches, mod.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(sr, sw)
-    assert torch.equal(kd.repad_edges(xr * env, cfg, geo), xw)
+    assert torch.equal(twins.repad_edges(xr * env, cfg, geo), xw)
 
 
 @pytest.mark.parametrize("name", sorted(RAW))
@@ -583,14 +583,14 @@ def _golden_inputs(dev, n_fft=512, hop=128, batch=2, frames=40):
     rng = np.random.default_rng(2024)
     cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=np.hanning(n_fft + 1)[:-1],
                           hop_length=hop)
-    geo = kd.make_geometry(cfg, frames)
+    geo = twins.make_geometry(cfg, frames)
     x = rng.standard_normal((batch, geo.lp)).astype(np.float32)
     tgt = np.abs(rng.standard_normal((batch, frames, n_fft // 2 + 1))).astype(np.float32)
     state = tgt * np.exp(1j * rng.uniform(0, 2 * np.pi, tgt.shape))
     state[..., 0] = state[..., 0].real  # DC and Nyquist bins of a real signal are real
     state[..., -1] = state[..., -1].real
     win = torch.from_numpy(w.astype(np.float32))
-    env = kd.make_inv_env(cfg, win, frames, geo)
+    env = twins.make_inv_env(cfg, win, frames, geo)
     return cfg, [torch.from_numpy(a).to(dev) for a in
                  (x, state.astype(np.complex64), tgt)] + [win.to(dev), env.to(dev)]
 

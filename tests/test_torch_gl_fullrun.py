@@ -30,7 +30,7 @@ from specinv_tpu.ops.pallas import fft4
 from specinv_tpu.ops.pallas import fullrun_lane, gl_fullrun4
 from specinv_tpu_torch import convert
 from specinv_tpu_torch.config import canonicalize as tcanon
-from specinv_tpu_torch.models import _kernel_driver as kd
+from specinv_tpu_torch.ops import twins
 from specinv_tpu_torch.ops.cuda import gl_fullrun
 
 N_FFT, HOP, B, ITERS, LR = 512, 128, 2, 5, 0.5
@@ -82,11 +82,11 @@ def _jax_run(jc, w, T, geo, x0, pre_re, pre_im, tgt_p, lane=None, **flags):
 def _port_inputs(tc, w, T, geo, x0, pre_re, pre_im, tgt_p):
     x, pre, tgt = convert.state_from_jax(
         x0, np.asarray(pre_re), np.asarray(pre_im), np.asarray(tgt_p), N_FFT, T)
-    tgeo = kd.make_geometry(tc, T)
+    tgeo = twins.make_geometry(tc, T)
     assert x.shape[-1] == tgeo.lp
     win = torch.from_numpy(w)
     return (torch.from_numpy(x), torch.from_numpy(pre), torch.from_numpy(tgt), win,
-            kd.make_inv_env(tc, win, T, tgeo))
+            twins.make_inv_env(tc, win, T, tgeo))
 
 
 def _close_plane(ours, ref):
@@ -160,12 +160,12 @@ def test_repad_edges_matches_jax():
         tc, _ = tcanon(257, np.float32, hop_length=128, center=center, pad_mode=mode)
         T = 20
         jgeo = make_geometry4(jc, T, block_t=None)
-        tgeo = kd.make_geometry(tc, T)
+        tgeo = twins.make_geometry(tc, T)
         y = rng.standard_normal((2, tgeo.lp)).astype(np.float32)
         y[:, : tgeo.p_amt] = 0
         y[:, tgeo.e + 1 :] = 0
         ref = np.asarray(j_repad(jnp.asarray(y), jc, jgeo))
-        np.testing.assert_array_equal(kd.repad_edges(torch.from_numpy(y), tc, tgeo).numpy(), ref)
+        np.testing.assert_array_equal(twins.repad_edges(torch.from_numpy(y), tc, tgeo).numpy(), ref)
 
 
 def test_supports():

@@ -40,9 +40,11 @@ from specinv_tpu.ops.framing import pad_center as j_pad_center
 from specinv_tpu.ops.pallas import gl_fused as j_gl_fused
 from specinv_tpu_torch import convert
 from specinv_tpu_torch.config import canonicalize as tcanon
-from specinv_tpu_torch.models import _kernel_driver as kd
-from specinv_tpu_torch.ops import dft, fourier
+from specinv_tpu_torch.models import common
+from specinv_tpu_torch.ops import dft, fourier, twins
 from specinv_tpu_torch.ops.cuda import _dft, gl_fused
+from specinv_tpu_torch.ops.framing import pad_center
+from specinv_tpu_torch.ops.stft import istft
 from specinv_tpu_torch.utils import runner
 
 from specinv_tpu_torch.utils.corpus import make_speech_like
@@ -92,11 +94,11 @@ def _setup(extra, seed=7):
     re, im = pad_tf(jnp.asarray(seed_spec.real), geo, T, F), pad_tf(jnp.asarray(seed_spec.imag),
                                                                    geo, T, F)
     x, plane, tgt = convert.dft_state_from_jax(x0, re, im, tp, N_FFT, T)
-    tgeo = kd.make_geometry(tc, T)
+    tgeo = twins.make_geometry(tc, T)
     assert x.shape[-1] == tgeo.lp and plane.shape == (B, T, F)
     win_t = torch.from_numpy(w)
     port = (torch.from_numpy(np.array(x)), torch.from_numpy(plane),
-            torch.from_numpy(np.array(tgt)), win_t, kd.make_inv_env(tc, win_t, T, tgeo))
+            torch.from_numpy(np.array(tgt)), win_t, twins.make_inv_env(tc, win_t, T, tgeo))
     return jc, tc, w, T, geo, (x0, re, im, tp, j_env), port
 
 
@@ -163,7 +165,7 @@ def numpy_default_iteration(x_pad, plane, target, window, inv_env, scalar, cfg, 
     for t in range(T):
         y[:, t * hop : t * hop + n] += fr[:, t]
     y = torch.from_numpy(y * inv_env)
-    return kd.repad_edges(y, cfg, geo).numpy(), mag, state
+    return twins.repad_edges(y, cfg, geo).numpy(), mag, state
 
 
 def test_default_tier_matches_numpy_one_bf16_pass():
@@ -176,7 +178,7 @@ def test_default_tier_matches_numpy_one_bf16_pass():
     for case in ("reflect", "circular", "normalized"):
         _, tc, _, T, _, _, (x, pre, tgt, win, env) = _setup(CASES[case])
         ox, omag, opre = gl_fused.fused_gl_iteration(x, pre, tgt, win, env, LR, tc, "default")
-        geo = kd.make_geometry(tc, T)
+        geo = twins.make_geometry(tc, T)
         rx, rmag, rpre = numpy_default_iteration(
             x.numpy(), pre.numpy().astype(np.complex128), tgt.numpy().astype(np.float64),
             win.numpy().astype(np.float64), env.numpy().astype(np.float64), LR, tc, geo)
@@ -370,7 +372,7 @@ def test_iteration_gradient_is_the_highest_twin():
     'highest' from the same inputs (the JAX custom_vjp's rule for scheme
     strings)."""
     _, tc, _, T, _, _, (x, pre, tgt, win, env) = _setup({})
-    geo = kd.make_geometry(tc, T)
+    geo = twins.make_geometry(tc, T)
     rng = np.random.default_rng(1)
     cx = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
     cp = torch.from_numpy(rng.standard_normal(pre.shape).astype(np.complex64))
@@ -383,7 +385,7 @@ def test_iteration_gradient_is_the_highest_twin():
         x0 = x.clone().requires_grad_(True)
         t0 = tgt.clone().requires_grad_(True)
         if run == "twin":
-            (xo, po), _ = kd.gl_dft_twin((x0, pre), t0, win, env, LR, tc, geo, "highest")
+            (xo, po), _ = twins.gl_dft_twin((x0, pre), t0, win, env, LR, tc, geo, "highest")
         else:
             xo, _mag, po = gl_fused.fused_gl_iteration(x0, pre, t0, win, env, LR, tc, "bf16x2")
         grads.append(torch.autograd.grad(loss(xo, po), (x0, t0)))
@@ -399,7 +401,7 @@ def _twin_vjp_case(extra=None):
     f64 = jnp.float64
     jstate = (jnp.asarray(x0, f64), jnp.asarray(re, f64), jnp.asarray(im, f64))
     j_env = make_inv_env(jc, jnp.asarray(w, f64), T, geo)
-    lp, F = kd.make_geometry(tc, T).lp, N_FFT // 2 + 1
+    lp, F = twins.make_geometry(tc, T).lp, N_FFT // 2 + 1
     rng = np.random.default_rng(5)
     cx = np.zeros(x0.shape)
     cx[:, :lp] = rng.standard_normal((B, lp))
@@ -407,7 +409,7 @@ def _twin_vjp_case(extra=None):
     cp[:, :, :T, :F] = rng.standard_normal((2, B, T, F))
     x, plane, tgt, win, _ = (t.to(torch.complex128 if t.is_complex() else torch.float64)
                              for t in port)
-    env = kd.make_inv_env(tc, win, T, kd.make_geometry(tc, T))  # in float64, as j_env
+    env = twins.make_inv_env(tc, win, T, twins.make_geometry(tc, T))  # in float64, as j_env
     return jc, tc, w, T, geo, jstate, jnp.asarray(tp, f64), j_env, (cx, cp), (x, plane, tgt,
                                                                               win, env)
 
@@ -426,7 +428,7 @@ def test_twin_vjp_matches_jax_twin_f64():
     (jgx, _, _), jgt = vjp((jnp.asarray(cx), jnp.asarray(cp[0]), jnp.asarray(cp[1])))
     x.requires_grad_(True)
     tgt.requires_grad_(True)
-    (xo, po), _ = kd.gl_dft_twin((x, pre), tgt, win, env, LR, tc, kd.make_geometry(tc, T),
+    (xo, po), _ = twins.gl_dft_twin((x, pre), tgt, win, env, LR, tc, twins.make_geometry(tc, T),
                                  "highest")
     lp, F = x.shape[-1], tgt.shape[-1]
     cpt = torch.complex(*(torch.from_numpy(c[:, :T, :F]) for c in cp))
@@ -444,18 +446,18 @@ def test_dft_path_gradient_is_the_highest_twin_chain():
     is test_twin_vjp_matches_jax_twin_f64.)"""
     _, tc, _, T, _, _, (_, pre, tgt, win, _) = _setup({})
     c = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (B, kd.make_geometry(tc, T).l_out)).astype(np.float32))
+        (B, twins.make_geometry(tc, T).l_out)).astype(np.float32))
     grads = []
     for how in ("path", "twin"):
         t = tgt.clone().requires_grad_(True)
         if how == "path":
             y = tgl.run_tm_dft(t, pre, win, LR, 0.0, tc, max_iter=3, precision="highest")
         else:
-            geo = kd.make_geometry(tc, T)
-            env = kd.make_inv_env(tc, win, T, geo)
-            state = (tgl.pad_center(tgl.istft(pre, tc, win), tc), pre)
+            geo = twins.make_geometry(tc, T)
+            env = twins.make_inv_env(tc, win, T, geo)
+            state = (pad_center(istft(pre, tc, win), tc), pre)
             for _ in range(3):
-                state, _mag = kd.gl_dft_twin(state, t, win, env, LR, tc, geo, "highest")
+                state, _mag = twins.gl_dft_twin(state, t, win, env, LR, tc, geo, "highest")
             y = state[0][..., geo.p_amt : geo.p_amt + geo.l_out]
         grads.append(torch.autograd.grad((y * c).sum(), t)[0])
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6 * float(grads[1].abs().max()))
@@ -477,26 +479,26 @@ def test_supports_both_sides():
     two, _ = tcanon(400, np.float32, hop_length=160, onesided=False)
     assert not _dft.supports(two, torch.ones(400))
     with pytest.raises(ValueError, match="dft backend needs"):
-        tgl.resolve_backend("dft", two, torch.ones(400), torch.device("cuda"))
+        common.resolve_backend("dft", two, torch.ones(400), torch.device("cuda"))
 
 
 def test_resolve_backend_and_precision_rules():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     c7, w7 = tcanon(201, np.float32, hop_length=160)
-    assert tgl.resolve_backend("auto", c7, torch.from_numpy(w7), cuda) == "dft"
-    assert tgl.resolve_backend("auto", c7, torch.from_numpy(w7), cuda, is_complex=True) == "fft"
-    assert tgl.resolve_backend("auto", c7, torch.from_numpy(w7), cpu) == "fft"
+    assert common.resolve_backend("auto", c7, torch.from_numpy(w7), cuda) == "dft"
+    assert common.resolve_backend("auto", c7, torch.from_numpy(w7), cuda, is_complex=True) == "fft"
+    assert common.resolve_backend("auto", c7, torch.from_numpy(w7), cpu) == "fft"
     two, w2 = tcanon(400, np.float32, hop_length=160, onesided=False)
-    assert tgl.resolve_backend("auto", two, torch.from_numpy(w2), cuda) == "fft"
+    assert common.resolve_backend("auto", two, torch.from_numpy(w2), cuda) == "fft"
     cwin = np.hanning(401)[:-1].astype(np.complex64)
     cc, wc = tcanon(400, np.float32, hop_length=160, window=cwin)
-    assert tgl.resolve_backend("auto", cc, torch.from_numpy(wc), cuda) == "fft"
+    assert common.resolve_backend("auto", cc, torch.from_numpy(wc), cuda) == "fft"
     cfg1, w1 = tcanon(1025, np.float32, hop_length=512)
-    assert tgl.resolve_backend("auto", cfg1, torch.from_numpy(w1), cuda) == "kernel"
-    assert tgl.resolve_backend("dft", cfg1, torch.from_numpy(w1), cpu) == "dft"
+    assert common.resolve_backend("auto", cfg1, torch.from_numpy(w1), cuda) == "kernel"
+    assert common.resolve_backend("dft", cfg1, torch.from_numpy(w1), cpu) == "dft"
     for bad in ("pallas", "pallas4"):
         with pytest.raises(ValueError, match="'dft'.*'kernel'"):
-            tgl.resolve_backend(bad, cfg1, torch.from_numpy(w1), cuda)
+            common.resolve_backend(bad, cfg1, torch.from_numpy(w1), cuda)
     # precision: every tier and pairs on 'dft'; float32 tiers elsewhere
     assert dft.check_precision(None, "dft") == "high"
     assert dft.check_precision("BF16X2T", "dft") == "bf16x2t"

@@ -21,7 +21,8 @@ import torch
 import specinv_tpu as si
 import specinv_tpu_torch as st
 tgl = importlib.import_module("specinv_tpu_torch.models.griffin_lim")
-from specinv_tpu_torch.ops.cuda import gl_fullrun
+from specinv_tpu_torch.models import common
+from specinv_tpu_torch.ops.cuda import _fullrun, gl_fullrun
 from specinv_tpu_torch.utils import runner
 
 from .helpers import make_signal, torch_stft
@@ -152,22 +153,22 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
     """The autograd.Function around the kernel: forward from the launch,
     backward from the plain twin.  With the launch swapped for its plain
     version on the CPU, its gradients equal plain autograd's."""
-    def cpu_launch(x_pad, pre, target, window, inv_env, lr, cfg, n_iters, with_mag,
-                   with_loss, valid, count):
+    def cpu_launch(kernel, counter, x_pad, pre, target, window, inv_env, lr, cfg, n_iters,
+                   with_mag, with_loss, valid):
         x, p, mag = gl_fullrun.fused_gl_run_reference(
             x_pad, pre, target, window, inv_env, lr, cfg, n_iters, emit_state=True,
             with_mag=True)
         return x, p, (mag if with_mag else None), None
 
     from specinv_tpu_torch.config import canonicalize
-    from specinv_tpu_torch.models import _kernel_driver as kd
+    from specinv_tpu_torch.ops import twins
 
     cfg, w = canonicalize(65, np.float64, hop_length=32)
     T = 12
-    geo = kd.make_geometry(cfg, T)
+    geo = twins.make_geometry(cfg, T)
     rng = np.random.default_rng(0)
     win = torch.from_numpy(np.hanning(129)[:-1])
-    inv_env = kd.make_inv_env(cfg, win, T, geo).double()
+    inv_env = twins.make_inv_env(cfg, win, T, geo).double()
     tgt = torch.from_numpy(np.abs(rng.standard_normal((1, T, 65)))).requires_grad_(True)
     pre = torch.from_numpy(rng.standard_normal((1, T, 65)) + 1j * rng.standard_normal((1, T, 65)))
     x0 = torch.from_numpy(rng.standard_normal((1, geo.lp))).requires_grad_(True)
@@ -178,9 +179,9 @@ def test_kernel_autograd_function_replays_twin(monkeypatch):
 
     g_plain = torch.autograd.grad(loss(gl_fullrun.fused_gl_run_reference(
         x0, pre, tgt, win, inv_env, 0.4, cfg, 3, emit_state=True)), (x0, tgt))
-    monkeypatch.setattr(gl_fullrun, "_launch", cpu_launch)
-    x, p, _mag = gl_fullrun._GLRun.apply(x0, pre, tgt, win, inv_env, 0.4, cfg, 3, True, False, T,
-                                         gl_fullrun._count)
+    monkeypatch.setattr(_fullrun, "launch", cpu_launch)
+    x, p, _mag = _fullrun.Run.apply(gl_fullrun.KERNEL, x0, pre, tgt, win, inv_env, 0.4, cfg, 3,
+                                    True, False, T, "launches")
     g_fn = torch.autograd.grad(loss((x, p)), (x0, tgt))
     for a, b in zip(g_fn, g_plain):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=0)
@@ -191,23 +192,23 @@ def test_backend_dispatch():
 
     cfg, w = canonicalize(1025, np.float32, hop_length=512)
     win = torch.from_numpy(w)
-    assert tgl.resolve_backend("auto", cfg, win, torch.device("cuda")) == "kernel"
-    assert tgl.resolve_backend("auto", cfg, win, torch.device("cpu")) == "fft"
+    assert common.resolve_backend("auto", cfg, win, torch.device("cuda")) == "kernel"
+    assert common.resolve_backend("auto", cfg, win, torch.device("cpu")) == "fft"
     odd, w2 = canonicalize(201, np.float32, hop_length=100)
     # n_fft 400: no whole-run kernel, so the direct-DFT kernel (JAX: pallas4 -> pallas)
-    assert tgl.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda")) == "dft"
+    assert common.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda")) == "dft"
     # ... but not for a complex spectrogram, a two-sided config or a complex window
-    assert tgl.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda"),
+    assert common.resolve_backend("auto", odd, torch.from_numpy(w2), torch.device("cuda"),
                                is_complex=True) == "fft"
     two, w3 = canonicalize(400, np.float32, hop_length=100, onesided=False)
-    assert tgl.resolve_backend("auto", two, torch.from_numpy(w3), torch.device("cuda")) == "fft"
+    assert common.resolve_backend("auto", two, torch.from_numpy(w3), torch.device("cuda")) == "fft"
     cwin = np.hanning(401)[:-1].astype(np.complex64)
     cplx, w4 = canonicalize(400, np.float32, hop_length=100, window=cwin)
-    assert tgl.resolve_backend("auto", cplx, torch.from_numpy(w4), torch.device("cuda")) == "fft"
+    assert common.resolve_backend("auto", cplx, torch.from_numpy(w4), torch.device("cuda")) == "fft"
     with pytest.raises(ValueError):
-        tgl.resolve_backend("kernel", odd, torch.from_numpy(w2), torch.device("cuda"))
+        common.resolve_backend("kernel", odd, torch.from_numpy(w2), torch.device("cuda"))
     with pytest.raises(ValueError):
-        tgl.resolve_backend("pallas4", cfg, win, torch.device("cuda"))
+        common.resolve_backend("pallas4", cfg, win, torch.device("cuda"))
     mag = torch.rand(129, 20)
     # pack on the CPU's resolved 'fft': JAX's message (it is taken on 'kernel')
     with pytest.raises(ValueError, match="pack applies to the whole-run pallas4 kernel only"):
@@ -232,13 +233,14 @@ def test_pack_follows_jax_rule(name):
     for k in (1, 2, np.int64(2)):
         assert torch.equal(fn(mag, backend="kernel", pack=k, **kw), base)
     cfg, w = st.canonicalize(129, np.float32)
-    assert tgl.resolve_backend("auto", cfg, torch.from_numpy(w), torch.device("cuda")) == "kernel"
-    tgl.check_pack(2, "kernel", 2)  # what 'auto' resolves to on the card
+    cuda = torch.device("cuda")
+    assert common.resolve_backend("auto", cfg, torch.from_numpy(w), cuda) == "kernel"
+    common.check_pack(2, "kernel", 2)  # what 'auto' resolves to on the card
     for bad in (0, 3, -2, 1.0, True):
         with pytest.raises(ValueError, match="must be >= 1 and divide the batch size 2"):
             fn(mag, backend="kernel", pack=bad, **kw)
         with pytest.raises(ValueError, match="must be >= 1 and divide the batch size 2"):
-            tgl.check_pack(bad, "kernel", 2)
+            common.check_pack(bad, "kernel", 2)
     for backend in ("fft", "dft", "auto"):  # 'auto' is 'fft' on the CPU
         with pytest.raises(ValueError, match="pack applies to the whole-run pallas4 kernel only"):
             fn(mag, backend=backend, pack=2, **kw)

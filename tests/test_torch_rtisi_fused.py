@@ -20,7 +20,7 @@ from specinv_tpu.config import canonicalize as jcanon
 from specinv_tpu.ops.pallas import fft4
 from specinv_tpu_torch import convert
 from specinv_tpu_torch.config import canonicalize as tcanon
-from specinv_tpu_torch.models import _kernel_driver as kd
+from specinv_tpu_torch.ops import twins
 from specinv_tpu_torch.ops.cuda import rtisi_fused
 
 from .helpers import make_signal, torch_stft
@@ -160,7 +160,7 @@ def test_plain_twin_equals_fft_step_f64(n_fft, hop, la, asym):
         lit, com = trt._frame_step(lit, tp[:, i : i + la + 1], w, LR, cfg, la, asym, 3)
         coms.append(com)
     windows = trt.rtisi_windows(w, cfg, asym)
-    twin = kd.rtisi_steps_twin(*state, tp[:, : 4 + la], windows, LR, cfg, 3)
+    twin = twins.rtisi_steps_twin(*state, tp[:, : 4 + la], windows, LR, cfg, 3)
     for o, r in zip(twin, (torch.stack(coms), *lit)):
         assert o.shape == r.shape
         scale = float(r.abs().max()) if r.numel() else 1.0

@@ -125,22 +125,22 @@ def test_raw_dispatch_geometry_and_normalized_form():
     """The raw dispatch leaves the raw overlap-add, which times the envelope
     and re-padded is one whole-run iteration, and the same state (float64,
     plain versions)."""
-    from specinv_tpu_torch.models import _kernel_driver as kd
+    from specinv_tpu_torch.ops import twins
 
     _, tc, w, x, st_re, st_im, tgt_p = _raw_state()
     x_t, st_t, tgt_t = (torch.from_numpy(a) for a in
                         convert.state_from_jax(x, st_re, st_im, tgt_p, N_FFT, T))
     x_t, st_t, tgt_t = x_t.double(), st_t.to(torch.complex128), tgt_t.double()
     win = torch.from_numpy(w).double()
-    geo = kd.make_geometry(tc, T)
-    inv_env = kd.make_inv_env(tc, win, T, geo)
+    geo = twins.make_geometry(tc, T)
+    inv_env = twins.make_inv_env(tc, win, T, geo)
     for mod, run, it in ((gl_fullrun, "fused_gl_run", "fused_gl_iteration"),
                          (admm_fullrun, "fused_admm_run", "fused_admm_iteration")):
         whole_x, whole_st = getattr(mod, run)(x_t, st_t, tgt_t, win, inv_env, 0.3, tc, 1,
                                               emit_state=True)
         rx, rst = getattr(mod, it)(x_t, st_t, tgt_t, win, 0.3, tc)
         assert rx.shape == x_t.shape and torch.equal(rst, whole_st)
-        torch.testing.assert_close(kd.repad_edges(rx * inv_env, tc, geo), whole_x,
+        torch.testing.assert_close(twins.repad_edges(rx * inv_env, tc, geo), whole_x,
                                    rtol=0, atol=1e-12)
         with pytest.raises(ValueError, match="valid_t"):
             getattr(mod, it)(x_t, st_t, tgt_t, win, 0.3, tc, valid_t=T + 1)

@@ -1,8 +1,12 @@
-"""STFT layer of specinv_tpu_torch against specinv_tpu in float64.
+"""STFT layer of specinv_tpu_torch against specinv_tpu in float64, and the
+ops layer's imports.
 
 Tolerance: atol 1e-10 relative to the max of the JAX output (both sides use
 pocketfft-class float64 FFTs; the differences are summation order).
 """
+import ast
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -220,3 +224,47 @@ def test_xla_dft_backends_name_the_ports_counterpart(backend):
         ttr.stft(torch.from_numpy(x), 256, backend=backend)
     with pytest.raises(ValueError, match="the port's counterpart is 'fft'"):
         ttr.istft(ttr.stft(torch.from_numpy(x), 256), length=3000, backend=backend)
+
+
+# The one import of the model layer from below it: ``mel_to_audio`` runs the
+# port's ``griffin_lim``, imported inside the function when it is called.
+LAZY_UPWARD = {("mel.py", "specinv_tpu_torch.models.griffin_lim")}
+
+
+def _imports(path: Path, package: list):
+    """``(module, inside a function)`` for each import in ``path``, relative
+    imports resolved against ``package``."""
+    tree = ast.parse(path.read_text())
+    nested = {id(n) for f in ast.walk(tree)
+              if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for n in ast.walk(f)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[: len(package) - node.level + 1] if node.level else [])
+            module = ".".join(p for p in (base, node.module) if p)
+            names = [module, *(f"{module}.{a.name}" for a in node.names)]
+        else:
+            continue
+        for name in names:
+            yield name, id(node) in nested
+
+
+def test_ops_import_nothing_from_models():
+    """No module under ``specinv_tpu_torch/ops/`` imports
+    ``specinv_tpu_torch.models``: the kernel wrappers and their plain twins
+    sit below the drivers that call them.  Only ``LAZY_UPWARD`` is exempt,
+    and only inside a function."""
+    ops = Path(tst.__file__).resolve().parent
+    upward = set()
+    for path in sorted(ops.rglob("*.py")):
+        rel = path.relative_to(ops)
+        package = ["specinv_tpu_torch", "ops", *rel.parts[:-1]]
+        for name, lazy in _imports(path, package):
+            if name.split(".")[:2] == ["specinv_tpu_torch", "models"] and not (lazy and any(
+                    f == rel.as_posix() and (name + ".").startswith(m + ".")
+                    for f, m in LAZY_UPWARD)):
+                upward.add((rel.as_posix(), name))
+    assert not upward, f"ops/ imports the model layer: {sorted(upward)}"
+

@@ -17,7 +17,7 @@ from portbench.inputs import hann
 from portbench.reference import griffin_lim as reference
 from portbench.reference._signal import stft
 from specinv_tpu_torch.config import canonicalize
-from specinv_tpu_torch.models.griffin_lim import resolve_backend
+from specinv_tpu_torch.models.common import resolve_backend
 from specinv_tpu_torch.utils.corpus import make_speech_like
 
 SR, N_FFT, HOP = 16000, 400, 160
