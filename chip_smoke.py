@@ -28,8 +28,11 @@ without them.  Phases, each of which raises on failure:
    at config 1 in every precision tier ('high', 'bf16x2', 'bf16x2t',
    'highest', 'default', and a ('high', 'bf16x2') pair for GL) and at batch
    2 on small clips (every pad mode, ``center=False``, ``normalized=True``
-   and the C7 geometries 400/160, 512/160, 1024/240), 1 and 5 iterations,
-   each beside a float64 run of the plain version; the RTISI-LA kernel
+   and the C7 geometries 400/160, 512/160, 1024/240) and at 'high' at the
+   ``gl400_16k_batch32`` cell's shape (32 chunks of 30 s at 400/160, many
+   tiles a CTA of the persistent product kernel; 1 iteration there), 1
+   and 5 iterations, each beside a float64 run of the plain version; the
+   RTISI-LA kernel
    (``csrc/rtisi_fused.cu``) over 8 steps from a real mid-clip state at
    config 3 (batch 1 and 16) and at small geometries (batch 2), from the
    states of ``chip_smoke_rtisi_states.npz``, each step a one-step launch
@@ -316,6 +319,8 @@ QUALITY_ITERS = 1000
 QUALITY_BAND_DB = {"griffin_lim": 0.03, "ADMM": 0.9, "griffin_lim dft": 0.03, "ADMM dft": 0.8}
 # C7 geometry of the 'auto' drive: n_fft 400, hop 160 (no whole-run kernel)
 C7_N_FFT, C7_HOP = 400, 160
+# The Whisper cell gl400_16k_batch32: 32 chunks of 30 s at 16 kHz
+WHISPER_CHUNKS, WHISPER_SAMPLES = 32, 480000
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
 # memory bandwidth, FP32 rate outside the tensor cores and dense bf16 rate
@@ -1492,6 +1497,33 @@ def smoke(clip_job, batch_jobs) -> None:
                                cfg, state, tier, (0,), DFT_ADMM_LIMITS[tier])
             admm_dft_err = max(admm_dft_err, err)
             note(("admm", tier), r)
+    # The Whisper cell's shape: 6,016 tiles a product, about 46 a CTA of the
+    # persistent kernel on an H100 (the shapes above have one or fewer);
+    # both products on it, 2 an iteration.  One iteration, at the limits
+    # that hold the kernel's arithmetic: over 5 the float32 plain version
+    # itself drifts from float64 as far as the 5-iteration limits (x 9.0e-4
+    # on an H100 80GB HBM3, 700 W, the kernel 1.2e-3, against 4e-4) at
+    # 96,032 frames.
+    cfg16, state16 = kernel_state(C7_N_FFT, C7_HOP, WHISPER_SAMPLES, WHISPER_CHUNKS, dev)
+    whisper_products = {}
+    for name, mod, run, scalar, extra, limits in (
+            ("gl", gl_fused, "fused_gl_iteration", lr, (), DFT_LIMITS),
+            ("admm", admm_fused, "fused_admm_iteration", ADMM_RHO, (0,), DFT_ADMM_LIMITS)):
+        mod.persistent_products = 0
+        err, r = check_dft(f"{name} {C7_N_FFT}/{C7_HOP} {WHISPER_CHUNKS} x 30 s", mod, run,
+                           scalar, cfg16, state16, "high", extra, limits["high"], n_iters=1)
+        whisper_products[name] = mod.persistent_products
+        if whisper_products[name] != 2:
+            raise AssertionError(f"{name} at the Whisper shape: {whisper_products[name]} "
+                                 f"products on the persistent kernel, expected 2")
+        if name == "gl":
+            gl_dft_err = max(gl_dft_err, err)
+        else:
+            admm_dft_err = max(admm_dft_err, err)
+        note((name, "high"), r)
+    print(f"  persistent products at the Whisper shape (1 iteration): {whisper_products}",
+          flush=True)
+    del state16
     print("  worst readings (kernel-plain, kernel-f64, plain-f64; x / |S| / state):", flush=True)
     for key, rows in dft_readings.items():
         print(f"    {key}: " + " / ".join(f"({r[0]:.1e}, {r[1]:.1e}, {r[2]:.1e})" for r in rows),
@@ -1576,14 +1608,23 @@ def smoke(clip_job, batch_jobs) -> None:
 
     scs = {}
 
+    persistent = {}  # the 'dft' main paths' products on the persistent kernel
+
     def drive(name, fn, mod, band, ceiling, spec=mag, sc_of=sc_db, kw=kw):
         """One main path: 100 iterations through the kernel (launch count
         read), SC against the torch.fft path, then with early stopping."""
         expected = (spec.shape[-1] - 1) * kw["hop_length"]
         reset_counts()
+        if hasattr(mod, "persistent_products"):
+            mod.persistent_products = 0
         y = fn(spec, max_iter=MAIN_ITERS, tol=0.0, **kw)
         torch.cuda.synchronize()
         launches = mod.launches
+        if hasattr(mod, "persistent_products"):  # both products in 'high'
+            persistent[name] = mod.persistent_products
+            if persistent[name] != 2 * MAIN_ITERS:
+                raise AssertionError(f"{name}: {persistent[name]} products on the persistent "
+                                     f"kernel, expected {2 * MAIN_ITERS}")
         if y.shape != (expected,) or y.device != clip.device or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"bad output: {tuple(y.shape)} on {y.device}")
         # this kernel MAIN_ITERS times, no other kernel of the port
@@ -1591,8 +1632,8 @@ def smoke(clip_job, batch_jobs) -> None:
         y_fft = fn(spec, max_iter=MAIN_ITERS, tol=0.0, backend="fft", **kw)
         sc_k, sc_f = sc_of(y), sc_of(y_fft)
         scs[name] = (sc_k, sc_f)
-        print(f"  kernel launches {launches} (expected {MAIN_ITERS}); output {tuple(y.shape)} finite",
-              flush=True)
+        print(f"  kernel launches {launches} (expected {MAIN_ITERS}); products on the persistent "
+              f"kernel {persistent.get(name, 'none')}; output {tuple(y.shape)} finite", flush=True)
         print(f"  SC after {MAIN_ITERS} it: kernel {sc_k:.4f} dB, fft {sc_f:.4f} dB, "
               f"diff {abs(sc_k - sc_f):.4f} dB (band {band})", flush=True)
         if not abs(sc_k - sc_f) <= band:
@@ -2206,20 +2247,27 @@ def smoke(clip_job, batch_jobs) -> None:
         # 400/160 'auto' drive launched it too); no one PyTorch call computes
         # the iteration: yardstick_ms is cuBLAS's HIGH products, timed alike;
         # "highest": the same at 'highest' beside cuBLAS's float32 products
+        # persistent_products: the main path's products on the persistent
+        # kernel; whisper_persistent_products: those of phase 3's iteration at
+        # the gl400_16k_batch32 cell's shape
         {"name": "gl_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/gl_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/gl_fused.py:193",
          "launches": gl_dft_launches, "max_abs_err": gl_dft_err,
          **timing(dft_times[("gl_fused", "high")][0], dft_times[("gl_fused", "high")][2],
                   dft_bounds["high"]),
          "called_ms": dft_times[("gl_fused", "high")][1], "yardstick_ms": yard["config 1"]["high"],
-         "highest": highest("gl_fused")},
+         "highest": highest("gl_fused"),
+         "persistent_products": persistent["griffin_lim dft"],
+         "whisper_persistent_products": whisper_products["gl"]},
         {"name": "admm_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/admm_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/admm_fused.py:41",
          "launches": admm_dft_launches, "max_abs_err": admm_dft_err,
          **timing(dft_times[("admm_fused", "high")][0], dft_times[("admm_fused", "high")][2],
                   dft_bounds["high"]),
          "called_ms": dft_times[("admm_fused", "high")][1],
-         "yardstick_ms": yard["config 1"]["high"], "highest": highest("admm_fused")},
+         "yardstick_ms": yard["config 1"]["high"], "highest": highest("admm_fused"),
+         "persistent_products": persistent["ADMM dft"],
+         "whisper_persistent_products": whisper_products["admm"]},
         # the raw dispatch of kernels A and C: one launch per iteration and
         # shard; launches: counted on the world-1 seq main path (tol 0) and
         # in the world-1 gradient phase (forward passes, and the remat

@@ -13,7 +13,8 @@ hop 512, hann; 431 frames, B = 1), from the SPSI seed as chip_smoke.py
 builds it: one iteration of ``gl_fused.fused_gl_iteration`` (E) and of
 ``admm_fused.fused_admm_iteration`` (F, rho 0.1) at HIGH and at HIGHEST,
 as a CUDA graph of 20 calls replayed 10 times and as called (CUDA events,
-mean of 20), and ``|S|`` after one HIGHEST iteration of E against the
+mean of 20); the same at HIGH on that clip at n_fft 400, hop 160 (1,379
+frames); and ``|S|`` after one HIGHEST iteration of E against the
 float64 plain version (beside the plain float32 version's distance).  The
 last lines are the card's name and power limit and one JSON object with
 every number.
@@ -85,30 +86,36 @@ def main() -> None:
     print(f"package {st.__file__}", flush=True)
     _build.library()
     clip = torch.from_numpy(make_speech_like(N_SAMPLES, seed=0).astype(np.float32)).to(dev)
-    cfg, w = canonicalize(N_FFT // 2 + 1, np.float32, window=torch.hann_window(N_FFT).numpy(),
-                          hop_length=HOP)
-    win = torch.from_numpy(w).to(dev)
-    tgt = stft_ops.stft(clip[None], cfg, win).abs().contiguous()
-    seed = phase_init_tm(tgt, cfg).to(torch.complex64)
-    T = tgt.shape[-2]
-    x_pad = pad_center(stft_ops.istft(seed, cfg, win), cfg).contiguous()
-    inv_env = twins.make_inv_env(cfg, win, T, twins.make_geometry(cfg, T))
-    state = (x_pad, seed, tgt, win, inv_env)
 
+    def start(n_fft, hop):
+        cfg, w = canonicalize(n_fft // 2 + 1, np.float32,
+                              window=torch.hann_window(n_fft).numpy(), hop_length=hop)
+        win = torch.from_numpy(w).to(dev)
+        tgt = stft_ops.stft(clip[None], cfg, win).abs().contiguous()
+        seed = phase_init_tm(tgt, cfg).to(torch.complex64)
+        T = tgt.shape[-2]
+        x_pad = pad_center(stft_ops.istft(seed, cfg, win), cfg).contiguous()
+        inv_env = twins.make_inv_env(cfg, win, T, twins.make_geometry(cfg, T))
+        return cfg, (x_pad, seed, tgt, win, inv_env)
+
+    cfg, state = start(N_FFT, HOP)
+    x_pad, seed, tgt, win, inv_env = state
     out = {}
-    for name, mod, run, scalar, extra in (
-            ("gl_fused", gl_fused, "fused_gl_iteration", LR, ()),
-            ("admm_fused", admm_fused, "fused_admm_iteration", RHO, (0,))):
-        for tier in ("high", "highest"):
-            fn = getattr(mod, run)
+    for shape, (cfg_s, state_s), tiers in (("", (cfg, state), ("high", "highest")),
+                                           (" 400/160", start(400, 160), ("high",))):
+        for name, mod, run, scalar, extra in (
+                ("gl_fused", gl_fused, "fused_gl_iteration", LR, ()),
+                ("admm_fused", admm_fused, "fused_admm_iteration", RHO, (0,))):
+            for tier in tiers:
+                fn, key = getattr(mod, run), f"{name} {tier}{shape}"
 
-            def call(fn=fn, scalar=scalar, extra=extra, tier=tier):
-                return fn(*state, scalar, cfg, *extra, precision=tier)
+                def call(fn=fn, scalar=scalar, extra=extra, tier=tier, cfg_s=cfg_s,
+                         state_s=state_s):
+                    return fn(*state_s, scalar, cfg_s, *extra, precision=tier)
 
-            out[f"{name} {tier}"] = {"graph_us": graph_ms(call) * 1000,
-                                     "called_us": called_ms(call) * 1000}
-            print(f"{name} {tier}: {out[f'{name} {tier}']['graph_us']:.2f} us (CUDA graph), "
-                  f"{out[f'{name} {tier}']['called_us']:.2f} us as called", flush=True)
+                out[key] = {"graph_us": graph_ms(call) * 1000, "called_us": called_ms(call) * 1000}
+                print(f"{key}: {out[key]['graph_us']:.2f} us (CUDA graph), "
+                      f"{out[key]['called_us']:.2f} us as called", flush=True)
 
     wide = [t.double() for t in (x_pad, tgt, win, inv_env)]
     a64 = gl_fused.fused_gl_iteration_reference(wide[0], seed.to(torch.complex128), *wide[1:],

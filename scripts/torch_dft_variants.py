@@ -47,31 +47,33 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from specinv_tpu_torch.ops.cuda import _build, gl_fused  # noqa: E402
 
-# The bf16 consumers' loop with per-stage sums, and its replacement: one
-# accumulator over every stage, each stage released once the next one's
-# products are in flight.
-STAGE_SUMS = """    for (int kt = 0; kt < k_tiles; ++kt) {
-      const int s = kt % kStages;
-      issue_stage<S>(acc, ring + s * kStageBytes, b_off, smem_u32(&full[s]), (kt / kStages) & 1);
-      wgmma_wait<0>();
-      fence_acc(acc);
+# The bf16 product warpgroup's loop with per-stage sums, and its
+# replacement: one accumulator over every stage of a tile, each stage
+# released once the next one's products are in flight (the last once the
+# tile's products are done).
+STAGE_SUMS = """      for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+        const int s = g % kPersistStages;
+        issue_stage<S>(acc, ring + s * kStageBytes, smem_u32(&full[s]), (g / kPersistStages) & 1);
+        wgmma_wait<0>();
+        fence_acc(acc);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
-      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
-    }
+        for (int q = 0; q < 64; ++q) sum[q] = __fadd_rn(sum[q], acc[q]);
+        if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      }
 """
 ONE_ACCUMULATOR = """#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      const int s = kt % kStages;
-      issue_stage<S>(acc, ring + s * kStageBytes, b_off, smem_u32(&full[s]), (kt / kStages) & 1);
-      wgmma_wait<1>();
-      if (kt > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(kt - 1) % kStages]));
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
+      for (int q = 0; q < 64; ++q) acc[q] = 0.0f;
+      for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+        const int s = g % kPersistStages;
+        issue_stage<S>(acc, ring + s * kStageBytes, smem_u32(&full[s]), (g / kPersistStages) & 1);
+        wgmma_wait<1>();
+        if (kt > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(g - 1) % kPersistStages]));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(smem_u32(&empty[(g - 1) % kPersistStages]));
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sum[i] = acc[i];
+      for (int q = 0; q < 64; ++q) sum[q] = acc[q];
 """
 # HIGHEST: the box's chain and the group's sums
 FFMA_FIRST = "d = kFirst && q == 0 ? __fmul_rn(x, y) : __fmaf_rn(x, y, d);"
@@ -121,8 +123,8 @@ FFMA_WAIT = "    mbar_wait(smem_u32(&full[s]), (kt / kStages) & 1);\n    const u
 VARIANTS = {  # name: (tier, patches)
     "high, per-stage sums": ("high", []),
     "high, one accumulator": ("high", [(STAGE_SUMS, ONE_ACCUMULATOR),
-                                       ("wgmma_m64n64k16(acc, ah, bh, kk > 0);",
-                                        "wgmma_m64n64k16(acc, ah, bh, 1);")]),
+                                       ("wgmma_m64n128k16(acc, ah, bh, kk > 0);",
+                                        "wgmma_m64n128k16(acc, ah, bh, 1);")]),
     "highest, 8 x 8 (as it is)": ("highest", []),
     "highest, table prefetch": ("highest", [(BOX_ONE_BY_ONE, BOX_PAIRS)]),
     "highest, chunks unrolled": ("highest", [(CHUNK_LOOP, CHUNK_LOOP.replace(" 1\n", "\n"))]),

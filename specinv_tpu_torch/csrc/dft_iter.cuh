@@ -42,28 +42,57 @@
 // with its own zero padding.  The splits are the ones split_bf16 makes of
 // the float32 values, so the schemes compute the same function.
 //
-// split_gemm_kernel computes a 64-row x 128-column output tile of one clip: a
-// producer warp keeps a ring of kStages shared-memory stages filled by the
-// Tensor Memory Accelerator (one 64 x 64 tile of each data half and one 128 x
-// 64 tile of each table half per stage, 128-byte swizzled, out-of-bounds rows
-// zero-filled, completion on an mbarrier per stage).  In a bf16 scheme two
-// consumer warpgroups, each owning 64 of the 128 columns, issue wgmma.mma_async
-// m64n64k16 (bf16 in, float32 accumulate) from the stage's tiles, every pass of
-// the scheme on the same stage into one accumulator started from zero.  Once a
-// stage's products are done, a warpgroup adds them into float32 sums in
-// registers, rounded to nearest, and releases the stage (one arrival per
-// consumer warp on its empty barrier); the two warpgroups of an SM take turns
-// on the tensor cores.  Summing per 64-deep stage keeps the result as close to
-// float64 as the plain version's: the tensor cores' own float32 accumulation
-// over the whole contraction of 2048 lay about 24x farther
-// (scripts/torch_dft_variants.py).  The epilogue gets the sums through shared
-// memory as pairs of neighbouring columns, a warp on 32 consecutive pairs of
-// one row: in the forward the (re, im) of 32 bins.
+// Each product computes 64-row x 128-column output tiles of one clip from
+// a ring of shared-memory stages that a producer keeps filled by the Tensor
+// Memory Accelerator (one 64 x 64 tile of each data half and one 128 x 64
+// tile of each table half per stage, 128-byte swizzled, out-of-bounds rows
+// zero-filled, completion on an mbarrier per stage).
 //
-// kHighest reads the same ring with float32 tiles (a stage holds 64 deep as
-// two 32-float boxes of each operand, the bytes of a bf16 stage) and keeps
-// the products exact float32 FFMA on the CUDA cores: TF32 or a bf16 split
-// would not compute its function.  Its consumers take more registers than
+// In a bf16 scheme persistent_split_gemm_kernel runs at every shape, a CTA
+// per SM (or per tile, where there are fewer tiles).  A CTA walks its
+// tiles, its producer filling a ring of kPersistStages across them, so the
+// ring never drains between tiles.  One product warpgroup issues
+// wgmma.mma_async m64n128k16 (bf16 in, float32 accumulate) for each whole
+// tile, every pass of the scheme on the same stage into one accumulator
+// started from zero.  Once a stage's products are done, it adds them into
+// float32 sums in registers, rounded to nearest, and releases the stage
+// (one arrival per warp on its empty barrier).  Summing per 64-deep stage
+// keeps the result as close to float64 as the plain version's: the tensor
+// cores' own float32 accumulation over the whole contraction of 2048 lay
+// about 24x farther (scripts/torch_dft_variants.py).  It leaves the sums in
+// one of two result tiles and goes on to the next tile's products, while
+// two epilogue warpgroups, whose loads of that tile's operands ran under
+// its products, store it from there as pairs of neighbouring columns, a
+// warp on 32 consecutive pairs of one row: in the forward the (re, im) of
+// 32 bins.  Shared memory: 3 stages of 48 KB and the two result tiles of
+// 33,792 bytes, 216,064 bytes with the ring's alignment.
+//
+// On an H100 this ran no slower than a CTA per tile (which fills its ring,
+// runs its stages and then its epilogue, one after the other) at every
+// shape timed, bit for bit the same: 0.96-1.00 of its time at one tile per
+// SM or fewer (config 1 and 400/160 at B = 1), 0.83-0.95 at 1.3 to 3.6
+// tiles per SM, 0.80 at the Whisper cell's 45.6 (PERF.md section 6).  Two
+// warpgroups taking whole tiles in turn, each storing its own (ping-pong),
+// ran the Whisper forward slower than a tile per CTA: one warpgroup's
+// epilogue of a whole tile outlasted the other's products.
+//
+// What bounds the products on an H100 at the Whisper cell's shape (32 x
+// 3,001 frames, n_fft 400, 'high', |S| written: 6,016 tiles a product):
+// the ring's TMA reads, 336 KB a tile from L2 (2.0 GB a product), take
+// about 200 us with the epilogues' loads and stores cut, on either product.
+// The inverse's light epilogue hides under them (about 230 us a product,
+// against 325 on a tile per CTA).  The forward's does not (about 420 us,
+// against 550): its Middle and its 0.8 GB of device-memory traffic (the
+// state read and written, the target, |S|, P's planes and the frames) run
+// at about 1.9 TB/s, and a third epilogue warpgroup gained 4 %.
+//
+// kHighest runs split_gemm_kernel, a CTA per tile at every shape: its FFMA
+// stream bounds it, not its epilogue.  Its ring has kStages of the same
+// bytes, and its result tile goes over the spent ring (197,632 bytes with
+// the alignment).  It reads the ring with float32 tiles (a stage holds 64
+// deep as two 32-float boxes of each operand, the bytes of a bf16 stage)
+// and keeps the products exact float32 FFMA on the CUDA cores: TF32 or a
+// bf16 split would not compute its function.  Its consumers take more registers than
 // the 168 a thread of nine warps gets, so its producer is a whole warpgroup
 // that gives its registers to them (setmaxnreg).  A thread owns 8 rows x
 // kFfmaCols columns and reads each operand as 16 bytes along k (four
@@ -189,27 +218,34 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving reads or writes of the accumulator across
 // this point (the tensor cores write it asynchronously).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d = A (64 x 16, desc a) * B (16 x 64, desc b) + (accumulate ? d : 0),
-// bf16 in, float32 out.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
-                                                int accumulate) {
+// d = A (64 x 16, desc a) * B (16 x 128, desc b) + (accumulate ? d : 0),
+// bf16 in, float32 out: the 128 columns of a whole tile.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -220,14 +256,14 @@ constexpr int kTileM = 64;                          // rows (frames) per tile
 constexpr int kTileN = 128;                         // columns per tile
 constexpr int kTileK = 64;                          // depth per stage: one 128-byte bf16 row
 constexpr int kBoxK = 32;                           // float32 depth of one 128-byte row
-constexpr int kConsumers = kTileN / 64;             // warpgroups, 64 columns each
-constexpr int kGemmThreads = 128 * kConsumers + 32;  // + the producer warp
-// kHighest's: a whole producer warpgroup, so that setmaxnreg can move its
-// registers to the consumers (registers are dealt per warpgroup)
+constexpr int kConsumers = kTileN / 64;             // warpgroups of the epilogue
+// kHighest's: kConsumers warpgroups and a whole producer warpgroup, so that
+// setmaxnreg can move its registers to them (registers are dealt per
+// warpgroup)
 constexpr int kFfmaThreads = 128 * kConsumers + 128;
 constexpr int kProducerRegs = 40, kFfmaRegs = 232;
 static_assert(kProducerRegs * 128 + kFfmaRegs * 128 * kConsumers <= 65536, "one CTA per SM");
-constexpr int kStages = 4;
+constexpr int kStages = 4;  // kHighest's ring
 constexpr int kATile = kTileM * kTileK * 2;  // bytes of one data half's tile (one float32 box)
 constexpr int kBTile = kTileN * kTileK * 2;  // bytes of one table half's tile (one float32 box)
 constexpr int kStageBytes = 2 * kATile + 2 * kBTile;
@@ -237,28 +273,67 @@ static_assert(kGemmSmem <= 227 * 1024, "the ring must fit in shared memory");
 static_assert(kTileM * kLdTile * 4 <= kStages * kStageBytes, "the result tile fits the ring");
 static_assert(kATile == kTileM * kBoxK * 4 && kBTile == kTileN * kBoxK * 4,
               "a float32 stage is two boxes of each operand in a bf16 stage's place");
+// The epilogue's threads: kHighest's consumers, the bf16 products' epilogue
+// warpgroups.
+constexpr int kEpiThreads = 128 * kConsumers;
+// The bf16 products' persistent kernel: one product warpgroup, the
+// epilogue warpgroups and a producer warpgroup, whose registers setmaxnreg
+// gives to the product warpgroup (setmaxnreg.inc takes only what other
+// warpgroups give back); a ring of kPersistStages, and two result tiles
+// beside it, since the ring is never spent (the barriers' static shared
+// memory counts against the same 227 KB).
+constexpr int kPersistThreads = 128 + kEpiThreads + 128;
+constexpr int kPersistRegs = 65536 / kPersistThreads;  // each thread's at launch
+constexpr int kProductRegs = kPersistRegs + (kPersistRegs - kProducerRegs);
+static_assert(kPersistRegs % 8 == 0 && kProductRegs <= 256, "setmaxnreg counts");
+constexpr int kPersistStages = 3;
+constexpr int kResultBytes = kTileM * kLdTile * 4;
+constexpr int kPersistSmem = kPersistStages * kStageBytes + 2 * kResultBytes + 1024;
+static_assert(kPersistSmem + 8 * (2 * kPersistStages + 4) <= 227 * 1024,
+              "the ring and two result tiles fit in shared memory");
 
 // Waits for a stage and issues its products into acc, every pass of the
 // scheme, acc started from zero: a 64 x 64 data tile (hi at stage, lo after
-// it) against the warpgroup's 64 x 64 part of the table tiles (at stage +
-// b_off, lo kBTile after it), 4 k16 steps.
+// it) against the 128 x 64 table tile (at stage + 2 kATile, lo kBTile after
+// it), 4 k16 steps.
 template <int S>
-__device__ __forceinline__ void issue_stage(float (&acc)[32], uint32_t stage, uint32_t b_off,
-                                            uint32_t full_bar, uint32_t parity) {
+__device__ __forceinline__ void issue_stage(float (&acc)[64], uint32_t stage, uint32_t full_bar,
+                                            uint32_t parity) {
+  const uint32_t tab = stage + 2 * kATile;
   mbar_wait(full_bar, parity);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTileK / 16; ++kk) {
-    const uint64_t ah = sw128_desc(stage + kk * 32), bh = sw128_desc(stage + b_off + kk * 32);
-    wgmma_m64n64k16(acc, ah, bh, kk > 0);
+    const uint64_t ah = sw128_desc(stage + kk * 32), bh = sw128_desc(tab + kk * 32);
+    wgmma_m64n128k16(acc, ah, bh, kk > 0);
     if constexpr (SchemeTraits<S>::kBLo) {
-      wgmma_m64n64k16(acc, ah, sw128_desc(stage + b_off + kBTile + kk * 32), 1);
+      wgmma_m64n128k16(acc, ah, sw128_desc(tab + kBTile + kk * 32), 1);
     }
     if constexpr (SchemeTraits<S>::kALo) {
-      wgmma_m64n64k16(acc, sw128_desc(stage + kATile + kk * 32), bh, 1);
+      wgmma_m64n128k16(acc, sw128_desc(stage + kATile + kk * 32), bh, 1);
     }
   }
   wgmma_commit();
+}
+
+// The producer's loads of stage kt of the tile at (b, m0, n0) into the ring
+// stage at stage, complete on bar: the data tiles (rows m0.., hi then lo)
+// and the table tiles (rows n0..), lo halves where the scheme reads them,
+// or for float32 the stage's second 32-deep box.
+template <int S>
+__device__ __forceinline__ void load_stage(uint32_t stage, uint32_t bar, const CUtensorMap* a_hi,
+                                           const CUtensorMap* a_lo, const CUtensorMap* b_hi,
+                                           const CUtensorMap* b_lo, int kt, int m0, int n0,
+                                           int b) {
+  constexpr bool kF32 = SchemeTraits<S>::kF32;
+  constexpr bool kALo = SchemeTraits<S>::kALo || kF32, kBLo = SchemeTraits<S>::kBLo || kF32;
+  constexpr uint32_t kBytes = kATile * (kALo ? 2 : 1) + kBTile * (kBLo ? 2 : 1);
+  const int k0 = kt * kTileK, k1 = kF32 ? k0 + kBoxK : k0;
+  mbar_expect_tx(bar, kBytes);
+  tma_load_3d(stage, a_hi, bar, k0, m0, b);
+  if constexpr (kALo) tma_load_3d(stage + kATile, a_lo, bar, k1, m0, b);
+  tma_load_2d(stage + 2 * kATile, b_hi, bar, k0, n0);
+  if constexpr (kBLo) tma_load_2d(stage + 2 * kATile + kBTile, b_lo, bar, k1, n0);
 }
 
 // kHighest's thread tile, 8 rows x kFfmaCols columns; kFfmaWarps warps
@@ -373,21 +448,48 @@ __device__ __forceinline__ void ffma_products(const unsigned char* ring, uint64_
   }
 }
 
-// C (rows of clip blockIdx.z, columns) = A (B, rows, K) @ B^T (columns, K),
-// both operands K-major behind tensor maps (bf16 halves, or float32 for
-// kHighest, whose lo maps are its hi ones), in the scheme S; the epilogue
-// gets each thread's pairs of neighbouring columns.  rows masks the tile's
-// last row; k_tiles = K / kTileK.
+// The epilogue: thread tid of kEpiThreads takes column pair tid % 64 of the
+// tile's rows tid / 64 + kRowStep q, q < kThreadRows.  load_rows loads their
+// operands, every one first (one round trip to memory); store_rows stores
+// the rows from the float32 result tile (64 x kLdTile).
+constexpr int kRowStep = kEpiThreads / (kTileN / 2), kThreadRows = kTileM / kRowStep;
+
+template <class Epilogue>
+__device__ __forceinline__ void load_rows(const Epilogue& epi,
+                                          typename Epilogue::Operands (&ops)[kThreadRows],
+                                          int tid, int b, int m0, int n0, int rows) {
+  const int r0 = m0 + tid / (kTileN / 2), c = n0 + 2 * (tid % (kTileN / 2));
+#pragma unroll
+  for (int q = 0; q < kThreadRows; ++q) {
+    const int r = r0 + kRowStep * q;
+    if (r < rows) ops[q] = epi.load(b, r, c);
+  }
+}
+
+template <class Epilogue>
+__device__ __forceinline__ void store_rows(const Epilogue& epi, const float* tile,
+                                           const typename Epilogue::Operands (&ops)[kThreadRows],
+                                           int tid, int b, int m0, int n0, int rows) {
+  const int cp = tid % (kTileN / 2), c = n0 + 2 * cp;
+#pragma unroll
+  for (int q = 0; q < kThreadRows; ++q) {
+    const int rl = tid / (kTileN / 2) + kRowStep * q;
+    const float2 v = *reinterpret_cast<const float2*>(tile + rl * kLdTile + 2 * cp);
+    if (m0 + rl < rows) epi.store(b, m0 + rl, c, v.x, v.y, ops[q]);
+  }
+}
+
+// C (rows of clip blockIdx.z, columns) = A (B, rows, K) @ B^T (columns, K)
+// in kHighest, a CTA per tile: both operands K-major float32 behind tensor
+// maps (the lo maps are the hi ones); the epilogue gets each thread's pairs
+// of neighbouring columns.  rows masks the tile's last row; k_tiles = K /
+// kTileK.
 template <int S, class Epilogue>
-__global__ void __launch_bounds__(SchemeTraits<S>::kF32 ? kFfmaThreads : kGemmThreads, 1)
-    split_gemm_kernel(
+__global__ void __launch_bounds__(kFfmaThreads, 1) split_gemm_kernel(
     const __grid_constant__ CUtensorMap a_hi, const __grid_constant__ CUtensorMap a_lo,
     const __grid_constant__ CUtensorMap b_hi, const __grid_constant__ CUtensorMap b_lo,
     int rows, int k_tiles, const Epilogue epi) {
-  constexpr bool kF32 = SchemeTraits<S>::kF32;
-  // the second tile of each operand in a stage: the lo half, or for
-  // float32 the stage's second 32-deep box
-  constexpr bool kALo = SchemeTraits<S>::kALo || kF32, kBLo = SchemeTraits<S>::kBLo || kF32;
+  static_assert(SchemeTraits<S>::kF32, "kHighest");
   extern __shared__ unsigned char gemm_smem[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const uint32_t ring = (smem_u32(gemm_smem) + 1023u) & ~1023u;
@@ -403,19 +505,13 @@ __global__ void __launch_bounds__(SchemeTraits<S>::kF32 ? kFfmaThreads : kGemmTh
   __syncthreads();
 
   if (warp >= 4 * kConsumers) {  // the producer
-    if constexpr (kF32) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == 4 * kConsumers && lane == 0) {
-      constexpr uint32_t kBytes = kATile * (kALo ? 2 : 1) + kBTile * (kBLo ? 2 : 1);
       for (int kt = 0; kt < k_tiles; ++kt) {
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(smem_u32(&empty[s]), ((kt / kStages) - 1) & 1);
-        const uint32_t stage = ring + s * kStageBytes, bar = smem_u32(&full[s]);
-        const int k0 = kt * kTileK, k1 = kF32 ? k0 + kBoxK : k0;
-        mbar_expect_tx(bar, kBytes);
-        tma_load_3d(stage, &a_hi, bar, k0, m0, b);
-        if constexpr (kALo) tma_load_3d(stage + kATile, &a_lo, bar, k1, m0, b);
-        tma_load_2d(stage + 2 * kATile, &b_hi, bar, k0, n0);
-        if constexpr (kBLo) tma_load_2d(stage + 2 * kATile + kBTile, &b_lo, bar, k1, n0);
+        load_stage<S>(ring + s * kStageBytes, smem_u32(&full[s]), &a_hi, &a_lo, &b_hi, &b_lo, kt,
+                      m0, n0, b);
       }
     }
     return;
@@ -423,58 +519,113 @@ __global__ void __launch_bounds__(SchemeTraits<S>::kF32 ? kFfmaThreads : kGemmTh
 
   unsigned char* ring_p = gemm_smem + (ring - smem_u32(gemm_smem));
   float* tile = reinterpret_cast<float*>(ring_p);
-  if constexpr (kF32) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFfmaRegs));
-    ffma_products(ring_p, full, empty, k_tiles, tile);
-  } else {
-    // A consumer warpgroup: all 64 rows, columns [64 wg, 64 wg + 64) of the
-    // tile.  Each stage's products start from zero and are added into the
-    // float32 sums once they are done; then the stage is released.  While
-    // one warpgroup waits and adds, the other's products run.
-    const uint32_t b_off = 2 * kATile + (warp / 4) * (kBTile / kConsumers);
-    float sum[32], acc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sum[i] = 0.0f;
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      const int s = kt % kStages;
-      issue_stage<S>(acc, ring + s * kStageBytes, b_off, smem_u32(&full[s]), (kt / kStages) & 1);
-      wgmma_wait<0>();
-      fence_acc(acc);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
-      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
-    }
-    // The sums go through shared memory (the ring is spent once every
-    // consumer is done with it), so that the epilogue walks the tile with
-    // neighbouring threads on neighbouring column pairs: a warp reads and
-    // writes 32 consecutive pairs of one row.  Register i of a thread holds
-    // row 16 w + lane/4 + 8 ((i/2) % 2) and column 8 (i/4) + 2 (lane % 4) +
-    // i % 2 of the warpgroup's 64 x 64 block.
-    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
-    const int w = warp % 4, wg = warp / 4;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = w * 16 + lane / 4 + 8 * ((i / 2) % 2);
-      const int c = wg * 64 + 8 * (i / 4) + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(tile + r * kLdTile + c) = make_float2(sum[i], sum[i + 1]);
-    }
-  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFfmaRegs));
+  ffma_products(ring_p, full, empty, k_tiles, tile);
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
-  // thread t: pair t % 64 of rows t / 64 + 4 q, q < 16; every operand
-  // loaded first, one round trip to memory
-  constexpr int kRowStep = 128 * kConsumers / (kTileN / 2);
-  const int tid = threadIdx.x, cp = tid % (kTileN / 2), c = n0 + 2 * cp;
-  typename Epilogue::Operands ops[kTileM / kRowStep];
-#pragma unroll
-  for (int q = 0; q < kTileM / kRowStep; ++q) {
-    const int r = m0 + tid / (kTileN / 2) + kRowStep * q;
-    if (r < rows) ops[q] = epi.load(b, r, c);
+  typename Epilogue::Operands ops[kThreadRows];
+  load_rows(epi, ops, threadIdx.x, b, m0, n0, rows);
+  store_rows(epi, tile, ops, threadIdx.x, b, m0, n0, rows);
+}
+
+// The same products in a bf16 scheme: a persistent CTA per SM (or per tile)
+// walks the tiles i = blockIdx.x, blockIdx.x + gridDim.x, ... of the
+// list whose column tile runs fastest, then the row tile, then the clip
+// (tiles = n_tiles * m_tiles * B), so that the CTAs on one row block at a
+// time share its data slab in L2.  Its warps specialise: the producer
+// fills the ring across tiles, so it never drains; the product warpgroup
+// runs each whole 64 x 128 tile (m64n128k16), adds each stage's products
+// into float32 sums in stage order, and leaves the sums in one of two
+// result tiles; the kConsumers epilogue warpgroups load a tile's operands
+// while its products run, then store it from its result tile while the
+// next tile's products run.  Barriers: done[r] (the sums are
+// in result tile r) and freed[r] (its epilogue has read it), one arrival
+// per thread.
+template <int S, class Epilogue>
+__global__ void __launch_bounds__(kPersistThreads, 1) persistent_split_gemm_kernel(
+    const __grid_constant__ CUtensorMap a_hi, const __grid_constant__ CUtensorMap a_lo,
+    const __grid_constant__ CUtensorMap b_hi, const __grid_constant__ CUtensorMap b_lo,
+    int rows, int k_tiles, int n_tiles, int m_tiles, int tiles, const Epilogue epi) {
+  static_assert(!SchemeTraits<S>::kF32, "a bf16 scheme");
+  extern __shared__ unsigned char gemm_smem[];
+  __shared__ __align__(8) uint64_t full[kPersistStages], empty[kPersistStages], done[2], freed[2];
+  const uint32_t ring = (smem_u32(gemm_smem) + 1023u) & ~1023u;
+  float* const results = reinterpret_cast<float*>(gemm_smem + (ring - smem_u32(gemm_smem)) +
+                                                  kPersistStages * kStageBytes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // tile i's clip, first row and first column
+  const auto at = [&](int i) {
+    return make_int3(i / n_tiles / m_tiles, i / n_tiles % m_tiles * kTileM, i % n_tiles * kTileN);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPersistStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 4);  // the product warpgroup's warps
+    }
+    for (int r = 0; r < 2; ++r) {
+      mbar_init(smem_u32(&done[r]), 128);
+      mbar_init(smem_u32(&freed[r]), kEpiThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp >= 4 + kEpiThreads / 32) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 + kEpiThreads / 32 && lane == 0) {
+      int g = 0;  // the ring's stages over every tile
+      for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+        const int3 p = at(i);
+        for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+          const int s = g % kPersistStages;
+          if (g >= kPersistStages) mbar_wait(smem_u32(&empty[s]), (g / kPersistStages - 1) & 1);
+          load_stage<S>(ring + s * kStageBytes, smem_u32(&full[s]), &a_hi, &a_lo, &b_hi, &b_lo,
+                        kt, p.y, p.z, p.x);
+        }
+      }
+    }
+    return;
+  }
+  if (warp < 4) {  // the product warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kProductRegs));
+    int g = 0;
+    for (int i = blockIdx.x, j = 0; i < tiles; i += gridDim.x, ++j) {
+      float sum[64], acc[64];
 #pragma unroll
-  for (int q = 0; q < kTileM / kRowStep; ++q) {
-    const int rl = tid / (kTileN / 2) + kRowStep * q;
-    const float2 v = *reinterpret_cast<const float2*>(tile + rl * kLdTile + 2 * cp);
-    if (m0 + rl < rows) epi.store(b, m0 + rl, c, v.x, v.y, ops[q]);
+      for (int q = 0; q < 64; ++q) sum[q] = 0.0f;
+      for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+        const int s = g % kPersistStages;
+        issue_stage<S>(acc, ring + s * kStageBytes, smem_u32(&full[s]), (g / kPersistStages) & 1);
+        wgmma_wait<0>();
+        fence_acc(acc);
+#pragma unroll
+        for (int q = 0; q < 64; ++q) sum[q] = __fadd_rn(sum[q], acc[q]);
+        if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      }
+      // register q: row 16 warp + lane/4 + 8 ((q/2) % 2), column 8 (q/4) +
+      // 2 (lane % 4) + q % 2
+      const int r = j % 2;
+      if (j >= 2) mbar_wait(smem_u32(&freed[r]), (j / 2 - 1) & 1);
+      float* tile = results + r * (kTileM * kLdTile);
+#pragma unroll
+      for (int q = 0; q < 64; q += 2) {
+        const int row = warp * 16 + lane / 4 + 8 * ((q / 2) % 2), c = 8 * (q / 4) + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(tile + row * kLdTile + c) = make_float2(sum[q], sum[q + 1]);
+      }
+      mbar_arrive(smem_u32(&done[r]));
+    }
+    return;
+  }
+  {  // the epilogue warpgroups
+    const int tid = threadIdx.x - 128;
+    for (int i = blockIdx.x, j = 0; i < tiles; i += gridDim.x, ++j) {
+      const int3 p = at(i);
+      typename Epilogue::Operands ops[kThreadRows];
+      load_rows(epi, ops, tid, p.x, p.y, p.z, rows);
+      const int r = j % 2;
+      mbar_wait(smem_u32(&done[r]), (j / 2) & 1);
+      store_rows(epi, results + r * (kTileM * kLdTile), ops, tid, p.x, p.y, p.z, rows);
+      mbar_arrive(smem_u32(&freed[r]));
+    }
   }
 }
 
@@ -698,7 +849,10 @@ inline bool make_map(CUtensorMap* map, int rank, const E* base, int planes, int 
 // One product in the scheme S: out[b] (rows, cols) = a[b] (rows, K) @
 // tab^T (cols, K) with a (B, rows, K) and tab (tab_rows, K) bf16 halves
 // (lo may be null where the scheme reads none), or float32 for kHighest
-// (lo null).  K is a multiple of kTileK.
+// (lo null).  K is a multiple of kTileK.  A bf16 scheme runs
+// persistent_split_gemm_kernel on a CTA per SM of the current device (or
+// per tile, where there are fewer), kHighest split_gemm_kernel on a CTA per
+// tile.
 template <int S, class Epilogue>
 cudaError_t launch_split_gemm(const typename SchemeTraits<S>::Elem* a_hi,
                               const typename SchemeTraits<S>::Elem* a_lo,
@@ -712,13 +866,28 @@ cudaError_t launch_split_gemm(const typename SchemeTraits<S>::Elem* a_hi,
       make_map(&m_bhi, 2, t_hi, 1, tab_rows, K, kTileN) &&
       make_map(&m_blo, 2, SchemeTraits<S>::kBLo ? t_lo : t_hi, 1, tab_rows, K, kTileN);
   if (!ok) return cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      split_gemm_kernel<S, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(cdiv(cols, kTileN), cdiv(rows, kTileM), B);
-  constexpr int kThreads = SchemeTraits<S>::kF32 ? kFfmaThreads : kGemmThreads;
-  split_gemm_kernel<S, Epilogue><<<grid, kThreads, kGemmSmem, stream>>>(
-      m_ahi, m_alo, m_bhi, m_blo, rows, K / kTileK, epi);
+  const int n_tiles = static_cast<int>(cdiv(cols, kTileN));
+  const int m_tiles = static_cast<int>(cdiv(rows, kTileM));
+  if constexpr (SchemeTraits<S>::kF32) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        split_gemm_kernel<S, Epilogue>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+    if (attr != cudaSuccess) return attr;
+    split_gemm_kernel<S, Epilogue><<<dim3(n_tiles, m_tiles, B), kFfmaThreads, kGemmSmem, stream>>>(
+        m_ahi, m_alo, m_bhi, m_blo, rows, K / kTileK, epi);
+  } else {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(persistent_split_gemm_kernel<S, Epilogue>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kPersistSmem);
+    if (attr != cudaSuccess) return attr;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const int tiles = n_tiles * m_tiles * B;
+    persistent_split_gemm_kernel<S, Epilogue>
+        <<<tiles < sms ? tiles : sms, kPersistThreads, kPersistSmem, stream>>>(
+            m_ahi, m_alo, m_bhi, m_blo, rows, K / kTileK, n_tiles, m_tiles, tiles, epi);
+  }
   return cudaGetLastError();
 }
 

@@ -38,7 +38,10 @@ class Kernel(NamedTuple):
     # one plain iteration: twin(state, target, window, inv_env, scalar, cfg, geo,
     # *extra, precision) -> (state, mag)
     twin: Callable
-    counters: dict   # its module's namespace, whose ``launches`` counts the launches
+    # its module's namespace: ``launches`` counts the iterations launched,
+    # ``persistent_products`` their products on the persistent kernel (every
+    # product in a bf16 scheme, csrc/dft_iter.cuh launch_split_gemm)
+    counters: dict
 
 
 def supports(cfg: STFTConfig, window) -> bool:
@@ -114,7 +117,8 @@ class Launch:
     the target, window, envelope, config, precision and scalars (the
     entry's trailing arguments before the stream) are checked, and the
     tables, the scratch and the fixed arguments made, once.  Each call
-    launches one iteration on the current stream, counting it first, and
+    launches one iteration on the current stream, counting it and its
+    products on the persistent kernel first, and
     returns ``(x, mag or None, state)``; it does not check ``x_pad`` and
     ``state`` (:meth:`check` does)."""
 
@@ -149,6 +153,7 @@ class Launch:
                   scratch((B, T, 2 * f_pad), torch.bfloat16, inv != "highest"),
                   scratch((B, T, 2 * f_pad), torch.bfloat16, dft.needs_lo(inv)))
         self.held = (target, window, inv_env, tab, frames, planes)
+        self.persistent = (fwd != "highest") + (inv != "highest")
         self.fn, self.kernel = getattr(_build.library(), kernel.entry), kernel
         self.mag_shape = (B, T, n_bins) if with_mag else None
         self.head = (target.data_ptr(), window.data_ptr(),
@@ -168,6 +173,7 @@ class Launch:
         x_out, state_out = torch.empty_like(x_pad), torch.empty_like(state)
         mag = None if self.mag_shape is None else torch.empty(self.mag_shape, device=self.dev)
         self.kernel.counters["launches"] += 1
+        self.kernel.counters["persistent_products"] += self.persistent
         code = self.fn(x_pad.data_ptr(), x_out.data_ptr(), state.data_ptr(),
                        state_out.data_ptr(), *self.head, _ptr(mag), *self.tail,
                        torch.cuda.current_stream(self.dev).cuda_stream)

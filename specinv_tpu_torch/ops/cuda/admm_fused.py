@@ -28,8 +28,10 @@ from . import _dft
 from ._dft import UNSUPPORTED, supports  # noqa: F401
 from ._fullrun import valid_frames
 
-# Kernel iterations launched (three or four launches each), counted by KERNEL.
+# Kernel iterations launched (three or four launches each), and of their two
+# products those on the persistent kernel (_dft.Kernel), counted by KERNEL.
 launches = 0
+persistent_products = 0
 KERNEL = _dft.Kernel("ADMM", "specinv_admm_dft_iteration", admm_dft_twin, globals())
 
 

@@ -27,8 +27,10 @@ from ..twins import gl_dft_twin, make_geometry
 from . import _dft
 from ._dft import UNSUPPORTED, supports  # noqa: F401
 
-# Kernel iterations launched (three or four launches each), counted by KERNEL.
+# Kernel iterations launched (three or four launches each), and of their two
+# products those on the persistent kernel (_dft.Kernel), counted by KERNEL.
 launches = 0
+persistent_products = 0
 KERNEL = _dft.Kernel("Griffin-Lim", "specinv_gl_dft_iteration", gl_dft_twin, globals())
 
 

@@ -10,6 +10,7 @@ machine with an NVIDIA GPU and nvcc, from the root of a checkout:
 GPU machine do without.)  chip_smoke.py runs the same kernels at the main
 paths' shapes.
 """
+import functools
 import importlib
 
 import numpy as np
@@ -418,6 +419,55 @@ def test_dft_batch_equals_single_clips(dev, name):
     torch.cuda.synchronize()
     assert mod.launches - before == 40
     assert all(torch.equal(y3[b : b + 1], ys[b]) for b in range(3))
+
+
+@functools.lru_cache(maxsize=1)
+def _whisper_chunks(dev):
+    """3 speech-like 30 s chunks at n_fft 400, hop 160 (3,001 frames each):
+    564 tiles a product together, 4 or 5 a CTA of the persistent kernel on
+    an H100's 132 SMs; a chunk alone 188, 1 or 2 a CTA."""
+    return _state(dev, 400, 160, batch=3, n_samples=480000)
+
+
+@pytest.mark.parametrize("name", sorted(DFT_KERNELS))
+@pytest.mark.parametrize("precision", ["high", "bf16x2t", "default"])
+def test_dft_persistent_products_give_each_chunk_its_one_chunk_bits(dev, name, precision):
+    """One iteration of 3 chunks of 30 s at 400/160 gives every chunk (x, |S|
+    and the state) the bits it gets alone, though the persistent kernel's
+    CTAs walk more of the batch's tiles than of a chunk's; both products
+    run on it."""
+    mod, run, scalar, extra, _ = DFT_KERNELS[name]
+    cfg, (x, s, tgt, win, env) = _whisper_chunks(dev)
+    fn = getattr(mod, run)
+    before = mod.persistent_products
+    whole = fn(x, s, tgt, win, env, scalar, cfg, *extra, precision=precision)
+    torch.cuda.synchronize()
+    assert mod.persistent_products - before == 2
+    for b in range(tgt.shape[0]):
+        one = fn(x[b : b + 1], s[b : b + 1], tgt[b : b + 1], win, env, scalar, cfg, *extra,
+                 precision=precision)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u[b : b + 1], v) for u, v in zip(whole, one)), b
+
+
+@pytest.mark.parametrize("precision,per_iteration", [
+    ("high", 2), ("bf16x2", 2), (("high", "highest"), 1), (("highest", "high"), 1),
+    ("highest", 0)])
+def test_dft_griffin_lim_counts_persistent_products(dev, precision, per_iteration):
+    """griffin_lim(backend='dft') counts its products on the persistent
+    kernel, two an iteration in a bf16 scheme and none in 'highest' (whose
+    FFMA kernel takes a tile per CTA), at config 1 (one 10 s clip at n_fft
+    2048: 119 forward tiles, fewer than an H100's SMs) as at 3 chunks of 30 s
+    at 400/160."""
+    for cfg, (_x, _s, tgt, win, _env) in (_state(dev, 2048, 512, batch=1, n_samples=220500),
+                                          _whisper_chunks(dev)):
+        mag = tgt.transpose(-1, -2).contiguous()  # (B, F, T), as callers hand it over
+        before, launches = gl_fused.persistent_products, gl_fused.launches
+        st.griffin_lim(mag, hop_length=cfg.hop_length, window=win, max_iter=3, tol=0.0,
+                       verbose=False, backend="dft", precision=precision)
+        torch.cuda.synchronize()
+        assert gl_fused.launches - launches == 3
+        assert gl_fused.persistent_products - before == 3 * per_iteration
 
 
 def _rtisi_input(dev, batch, seconds):
