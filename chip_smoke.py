@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: Griffin-Lim
 (config 1) and ADMM (config 2) through the whole-run kernels and through the
 direct-DFT kernels, Griffin-Lim at n_fft 400 / hop 160 through 'auto',
-RTISI-LA offline and streaming (config 3), L-BFGS on a 128-band log-mel
+RTISI-LA offline and streaming (config 3, and at 400 / 160), L-BFGS on a 128-band log-mel
 spectrogram (config 4), mel_to_audio, the WAV codec, the command line and
 the throughput timer, and the parallel layer: the sequence-parallel
 Griffin-Lim and ADMM on a 10-minute clip at world size 1 and 2, their
@@ -35,7 +35,10 @@ without them.  Phases, each of which raises on failure:
    RTISI-LA kernel
    (``csrc/rtisi_fused.cu``) over 8 steps from a real mid-clip state at
    config 3 (batch 1 and 16) and at small geometries (batch 2), from the
-   states of ``chip_smoke_rtisi_states.npz``, each step a one-step launch
+   states of ``chip_smoke_rtisi_states.npz``, and on its mixed-radix
+   instance at the ``rtisi400_16k_batch32`` cell's shape (32 chunks of 30 s
+   at 16 kHz, 400 / 160, look-ahead 2) from the state after 100 float64
+   plain steps, each step a one-step launch
    from the plain version's state beside a float64 run of the plain step,
    and a launch of 8 steps bit for bit against 8 one-step launches; the raw
    per-iteration dispatch of the whole-run
@@ -58,7 +61,11 @@ without them.  Phases, each of which raises on failure:
    hop 160, which must launch ``gl_fused`` and nothing else;
    ``specinv_tpu_torch.RTISI_LA`` (look-ahead 3, 25 refinements: 55
    launches), then ``RTISIStreamer`` over the same frames (434 launches, the
-   offline path's committed frames bit for bit); BASELINE config 4:
+   offline path's committed frames bit for bit), and both again on 'auto' at
+   n_fft 400 / hop 160 (look-ahead 2) on the 10 s clip: every launch on the
+   kernel's mixed-radix instance (``rtisi_fused.mixed_radix_launches``),
+   the final SC held against the ``torch.fft`` path's, the streamer's
+   committed frames the offline path's bit for bit; BASELINE config 4:
    ``specinv_tpu_torch.L_BFGS`` on the clip's 128-band log-mel spectrogram,
    10 outer steps of 20 strong-Wolfe iterations, history 100, float32, again
    with the history in bf16 and with the fixed step, each launching no
@@ -243,6 +250,26 @@ RTISI_STATES_SHA256 = "08386d5d549e2b13ae33c0b3eb202bdb51211f43fdac57a5cd54798a1
 # twice the larger drift, rounded up.
 RTISI_SC_BAND_DB = 1.5
 RTISI_SC_CEILING_DB = -21.5
+# Kernel D's mixed-radix instance (n_fft 400: n/2 = 200, one radix-8 and two
+# radix-5 stages) at the rtisi400_16k_batch32 cell's shape, 8 single steps
+# from the state of mixed_rtisi_state (after MIXED_RTISI_I0 float64 steps),
+# held as RTISI_LIMITS are.  Kernel / plain (cuFFT) from the float64 step,
+# over the 32 chunks (one NVIDIA H100 80GB HBM3, 700 W): committed frames
+# 1.56e-6 / 2.76e-6, committed buffer 1.26e-6 / 2.36e-6, in flight 5.44e-6 /
+# 6.71e-6, momentum 2.81e-5 / 3.06e-5; the kernel lay 2.81e-6, 2.30e-6,
+# 1.21e-5 and 5.86e-5 from the plain step.  Each limit is twice the sum of
+# the two sides, rounded up to one digit.
+MIXED_RTISI_I0 = 100
+RTISI_MIXED_LIMITS = {"committed": 9e-6, "keeped": 8e-6, "update": 3e-5, "pre": 2e-4}
+# RTISI_LA and RTISIStreamer on 'auto' at 400/160 (look-ahead 2, 25
+# refinements): final SC of the kernel path against the float32 'fft'
+# path's, and the ceiling, derived as config 3's.  On the 10 s clips of seeds
+# 0-3 (the drive's is seed 0) the float64 fft path ended at -16.95 dB or
+# below, and the float32 runs lay at most 0.076 dB (kernel) and 0.130 dB
+# (fft) from it (same card): the band is twice the sum, 0.5 dB; the ceiling
+# the worst float64 SC plus twice the larger drift, rounded up.
+C7_RTISI_SC_BAND_DB = 0.5
+C7_RTISI_SC_CEILING_DB = -16.6
 
 # The direct-DFT kernels (gl_fused.cu, admm_fused.cu) against their plain
 # versions, float32, relative to the largest value of the plain output: each
@@ -381,7 +408,8 @@ SEQ_SC_BAND_DB, SEQ_ADMM_SC_BAND_DB = 0.2, 2.0
 # The launch counters of the port's kernel wrappers (module, attribute).
 COUNTERS = (("gl_fullrun", "launches"), ("gl_fullrun", "iteration_launches"),
             ("admm_fullrun", "launches"), ("admm_fullrun", "iteration_launches"),
-            ("fft", "launches"), ("rtisi_fused", "launches"), ("gl_fused", "launches"),
+            ("fft", "launches"), ("rtisi_fused", "launches"),
+            ("rtisi_fused", "mixed_radix_launches"), ("gl_fused", "launches"),
             ("admm_fused", "launches"))
 
 
@@ -579,11 +607,11 @@ def event_ms(fn) -> float:
 
 
 def rtisi_state(n_fft, hop, n_samples, batch, dev, window="hann", look_ahead=-1,
-                asym=False, seed0=0, **stft_kwargs):
-    """RTISI-LA's starting state for ``batch`` speech-like clips (seeds
-    ``seed0`` onwards): the padded target ``(B, T + 2 la, F)``, the windows
-    and ``(keeped, update, pre)`` with the zero-phase seed as the newest
-    in-flight frame."""
+                asym=False, seed0=0, sr=22050.0, **stft_kwargs):
+    """RTISI-LA's starting state for ``batch`` speech-like clips at ``sr``
+    (seeds ``seed0`` onwards): the padded target ``(B, T + 2 la, F)``, the
+    windows and ``(keeped, update, pre)`` with the zero-phase seed as the
+    newest in-flight frame."""
     import importlib
 
     from specinv_tpu_torch.config import canonicalize
@@ -594,7 +622,7 @@ def rtisi_state(n_fft, hop, n_samples, batch, dev, window="hann", look_ahead=-1,
     win_np = {"hann": np.hanning, "hamming": np.hamming, "ones": np.ones}[window](n_fft + 1)[:-1]
     cfg, w = canonicalize(n_fft // 2 + 1, np.float32, window=win_np.astype(np.float32),
                           hop_length=hop, **stft_kwargs)
-    clips = np.stack([make_speech_like(n_samples, seed=seed0 + s) for s in range(batch)])
+    clips = np.stack([make_speech_like(n_samples, sr=sr, seed=seed0 + s) for s in range(batch)])
     win = torch.from_numpy(w).to(dev)
     mag = stft_ops.stft(torch.from_numpy(clips.astype(np.float32)).to(dev), cfg, win).abs()
     num_keep = (n_fft - 1) // hop
@@ -617,6 +645,24 @@ def rtisi_check_states(dev) -> dict:
         names = {key.rsplit("_", 1)[0] for key in npz.files}
         return {name: tuple(torch.from_numpy(npz[f"{name}_{part}"]).to(dev)
                             for part in ("keep", "upd", "pre")) for name in names}
+
+
+def mixed_rtisi_state(dev):
+    """Kernel D's mixed-radix check at the ``rtisi400_16k_batch32`` cell's
+    shape: 32 speech-like chunks of 30 s at 16 kHz, n_fft 400, hop 160, a
+    periodic hann window, look-ahead 2; the state after
+    ``MIXED_RTISI_I0`` plain steps in float64 from the zero-phase seed,
+    narrowed to the kernel's types.  The float64 steps make the same state
+    on every run, so the limits hold where they were derived."""
+    from specinv_tpu_torch.ops.cuda import rtisi_fused
+
+    cfg, la, target, windows, state = rtisi_state(C7_N_FFT, C7_HOP, WHISPER_SAMPLES,
+                                                  WHISPER_CHUNKS, dev, sr=16000.0)
+    w64 = type(windows)(*(w.double() for w in windows))
+    _, *state64 = rtisi_fused.fused_rtisi_steps_reference(
+        *map(wide, (*state, target[:, : MIXED_RTISI_I0 + la])), w64, 0.99 / 1.99, cfg,
+        RTISI_ITERS)
+    return cfg, la, target, windows, tuple(a.to(b.dtype) for a, b in zip(state64, state))
 
 
 def frozen_state(states: dict, name: str, fresh) -> tuple:
@@ -1550,6 +1596,17 @@ def smoke(clip_job, batch_jobs) -> None:
         state = frozen_state(rtisi_states, f"small{idx}", state)
         rtisi_err = max(rtisi_err, check_rtisi(f"{n_fft}/{hop} {extra}", cfg, la, tgt, win,
                                                state, i0, RTISI_SMALL_LIMITS))
+    # The mixed-radix instance at the rtisi400_16k_batch32 cell's shape: every
+    # one of check_rtisi's 17 launches runs it.
+    cfg, la, tgt, win, state = mixed_rtisi_state(dev)
+    reset_counts()
+    rtisi_err = max(rtisi_err, check_rtisi(
+        f"{C7_N_FFT}/{C7_HOP}, {WHISPER_CHUNKS} x 30 s at 16 kHz", cfg, la, tgt, win, state,
+        MIXED_RTISI_I0, RTISI_MIXED_LIMITS))
+    if (rtisi_fused.launches, rtisi_fused.mixed_radix_launches) != (17, 17):
+        raise AssertionError(f"rtisi {C7_N_FFT}/{C7_HOP}: {rtisi_fused.launches} launches, "
+                             f"{rtisi_fused.mixed_radix_launches} mixed-radix, expected 17")
+    del cfg, la, tgt, win, state
 
     print(f"[3] the raw per-iteration dispatch (K4 gl_fused4._kernel, K6 "
           f"admm_fused4._kernel_iter): shard 0 and 1 of the 10-minute clip at 2 shards "
@@ -1750,8 +1807,10 @@ def smoke(clip_job, batch_jobs) -> None:
     rtisi_launches = rtisi_fused.launches
     if y.shape != (expected_len,) or y.device != clip.device or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"RTISI_LA: bad output {tuple(y.shape)} on {y.device}")
-    if rtisi_launches != rtisi_expected:
-        raise AssertionError(f"RTISI_LA: {rtisi_launches} launches, expected {rtisi_expected}")
+    if (rtisi_launches, rtisi_fused.mixed_radix_launches) != (rtisi_expected, 0):
+        raise AssertionError(f"RTISI_LA: {rtisi_launches} launches "
+                             f"({rtisi_fused.mixed_radix_launches} mixed-radix), expected "
+                             f"{rtisi_expected} (0)")
     sc_k, sc_f = sc_db(y), sc_db(st.RTISI_LA(mag, backend="fft", **rtisi_kw))
     print(f"  kernel launches {rtisi_launches} (expected {rtisi_expected}); output "
           f"{tuple(y.shape)} finite", flush=True)
@@ -1785,6 +1844,54 @@ def smoke(clip_job, batch_jobs) -> None:
     if not torch.equal(torch.stack(streamer.committed), recorded["frames"]):
         raise AssertionError("RTISIStreamer: committed frames differ from the offline path's")
     print("  committed frames equal the offline kernel path's, bit for bit", flush=True)
+
+    c7_frames, c7_la = c7_mag.shape[-1], (C7_N_FFT - 1) // C7_HOP
+    c7_expected = -(-(c7_frames + c7_la) // 8)
+    c7_rtisi_kw = dict(look_ahead=c7_la, max_iter=RTISI_ITERS, **c7_kw)  # the entry's default
+    print(f"[4] main path: RTISI_LA and RTISIStreamer on 'auto' at n_fft {C7_N_FFT}, hop "
+          f"{C7_HOP}, look-ahead {c7_la}, {RTISI_ITERS} refinements, the 10 s clip "
+          f"({c7_frames} frames): kernel D's mixed-radix instance {since()}", flush=True)
+    reset_counts()
+    rt.synthesize = record
+    try:
+        y = st.RTISI_LA(c7_mag, **c7_rtisi_kw)
+        torch.cuda.synchronize()
+    finally:
+        rt.synthesize = synthesize
+    if (rtisi_fused.launches, rtisi_fused.mixed_radix_launches) != (c7_expected,) * 2:
+        raise AssertionError(f"RTISI_LA {C7_N_FFT}/{C7_HOP}: {rtisi_fused.launches} launches, "
+                             f"{rtisi_fused.mixed_radix_launches} mixed-radix, expected "
+                             f"{c7_expected}")
+    if y.shape != ((c7_frames - 1) * C7_HOP,) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"RTISI_LA {C7_N_FFT}/{C7_HOP}: bad output {tuple(y.shape)}")
+    sc_k, sc_f = c7_sc(y), c7_sc(st.RTISI_LA(c7_mag, backend="fft", **c7_rtisi_kw))
+    print(f"  kernel launches {c7_expected}, each mixed-radix; SC: kernel {sc_k:.4f} dB, fft "
+          f"{sc_f:.4f} dB, diff {abs(sc_k - sc_f):.4f} dB (band {C7_RTISI_SC_BAND_DB}, ceiling "
+          f"{C7_RTISI_SC_CEILING_DB})", flush=True)
+    if not abs(sc_k - sc_f) <= C7_RTISI_SC_BAND_DB:
+        raise AssertionError(f"RTISI_LA {C7_N_FFT}/{C7_HOP}: kernel and fft paths disagree on SC")
+    if not sc_k < C7_RTISI_SC_CEILING_DB:
+        raise AssertionError(f"RTISI_LA {C7_N_FFT}/{C7_HOP}: SC {sc_k:.2f} dB is not below "
+                             f"{C7_RTISI_SC_CEILING_DB} dB")
+    reset_counts()
+    streamer = RecordingStreamer(C7_N_FFT // 2 + 1, look_ahead=c7_la, max_iter=RTISI_ITERS,
+                                 hop_length=C7_HOP, window=c7_window)
+    streamer.committed = []
+    chunks = [streamer.push(c7_mag[:, t]) for t in range(c7_frames)]
+    chunks = [c for c in chunks if c is not None] + [streamer.flush()]
+    torch.cuda.synchronize()
+    if (rtisi_fused.launches, rtisi_fused.mixed_radix_launches) != (c7_frames + c7_la,) * 2:
+        raise AssertionError(f"RTISIStreamer {C7_N_FFT}/{C7_HOP}: {rtisi_fused.launches} "
+                             f"launches, {rtisi_fused.mixed_radix_launches} mixed-radix, "
+                             f"expected {c7_frames + c7_la}")
+    if not bool(torch.isfinite(torch.cat(chunks, dim=1)).all()):
+        raise AssertionError(f"RTISIStreamer {C7_N_FFT}/{C7_HOP}: non-finite samples")
+    if not torch.equal(torch.stack(streamer.committed), recorded["frames"]):
+        raise AssertionError(f"RTISIStreamer {C7_N_FFT}/{C7_HOP}: committed frames differ from "
+                             "the offline path's")
+    c7_rtisi_launches = c7_expected + c7_frames + c7_la
+    print(f"  streamer: {c7_frames + c7_la} launches, each mixed-radix; committed frames equal "
+          f"the offline kernel path's, bit for bit", flush=True)
 
     print(f"[4] main path: BASELINE config 4, L_BFGS on the {N_MELS}-band log-mel of the 10 s "
           f"clip, {LBFGS_OUTER} x {LBFGS_INNER} iterations, history {LBFGS_HISTORY} {since()}",
@@ -2235,12 +2342,15 @@ def smoke(clip_job, batch_jobs) -> None:
          "launches": gl_launches + admm_launches + grad_launches["gl_fullrun.launches"]
          + grad_launches["admm_fullrun.launches"],
          "max_abs_err": fft_err, **timing(fft_ms, fft_plain_ms, fft_bound, fft_plain_ms)},
-        # launches: RTISI_LA's and then the streamer's, on the main path; ms
-        # and bound: one launch of 8 steps at B = 1; plan: its cluster
+        # launches: RTISI_LA's and then the streamer's, on the main path, at
+        # config 3 and at 400/160; mixed_radix_launches: those at 400/160, on
+        # the mixed-radix instance; ms and bound: one launch of 8 steps at
+        # B = 1 at config 3; plan: its cluster
         {"name": "rtisi_fused", "route": "cuda", "source": "specinv_tpu_torch/csrc/rtisi_fused.cu",
          "replaces": "specinv_tpu/ops/pallas/rtisi_fused4.py:274; "
                      "specinv_tpu/ops/pallas/rtisi_fused4.py:61",
-         "launches": rtisi_launches + stream_launches, "max_abs_err": rtisi_err,
+         "launches": rtisi_launches + stream_launches + c7_rtisi_launches,
+         "mixed_radix_launches": c7_rtisi_launches, "max_abs_err": rtisi_err,
          **timing(rtisi_ms, rtisi_plain_ms, rtisi_bound), "plan": rtisi_plan._asdict()},
         # one iteration at config 1 in the default tier (HIGH), ms as a CUDA
         # graph (called_ms as called); launches: the 'dft' main path's (the

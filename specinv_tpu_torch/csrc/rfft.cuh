@@ -1,6 +1,7 @@
 // Real FFT at half length for the port's kernels: an n-point real frame
 // transformed as an h = n/2-point complex FFT in Stockham radix-8/4/2 stages
-// held in registers, with the standard split passes around it, in FP64.
+// (and, for D off the powers of two, radix-5/3 ones) held in registers, with
+// the standard split passes around it, in FP64.
 // The RTISI kernel D (rtisi_fused.cu), the whole-run kernels A and C
 // (fullrun.cuh) and the stand-alone transform B (fft.cu) run it.
 //
@@ -49,10 +50,23 @@
 // is half its FP32 rate, and these transforms are bound by latency and
 // barriers, not by operations.
 //
+// Mixed radix (kernel D alone): where h = n/2 = 2^a 3^b 5^c is no power of
+// two (n_fft 400: h = 200), fft_mixed runs the same Stockham stages after
+// the plan of plan(h): radix 8 while three or more factors of two remain,
+// then one radix-4 or radix-2 stage (the power-of-two plan), then a radix-5
+// stage per factor of five and a radix-3 stage per factor of three.  Its
+// index and twiddle arithmetic take a stage's stride and span as integers
+// (divisions where the power-of-two stages shift); at a power of two the
+// plan is the power-of-two one, whose stages A, B, C and D keep running.
+//
 // Layout: a buffer of h points keeps point i at at(i) = i + i / 8 (one
 // padding point after every eight), so that the first stage's stores, eight
 // points apart across threads, fall in distinct banks; buffers are
-// padded(h) points long.
+// padded(h) points long.  A mixed plan keeps it: where 8 divides h, the
+// radix-5 and radix-3 stages, which follow the radix-8 one, load and store
+// runs of eight consecutive points aligned to eight, which it leaves on
+// distinct banks, and only the first stage's loads (runs at offsets r h / 8)
+// can meet one bank twice.
 //
 // Twiddles: tw[j] = exp(-2 pi i j / n), j < n/2, computed in float64 on the
 // host and kept in float64, here read from shared memory: exp(-2 pi i m / h)
@@ -139,12 +153,48 @@ __device__ __forceinline__ void dft8(double2* v) {
   v[7] = sub(e3, o3);
 }
 
+// X[k] = sum_m v[m] W^(m k), W = exp(-2 pi i / 3)
+__device__ __forceinline__ void dft3(double2* v) {
+  constexpr double s = 0.86602540378443864676;  // sin(2 pi / 3)
+  const double2 t = add(v[1], v[2]);
+  const double2 m = make_double2(v[0].x - 0.5 * t.x, v[0].y - 0.5 * t.y);
+  const double2 d = mul_neg_i(make_double2(s * (v[1].x - v[2].x), s * (v[1].y - v[2].y)));
+  v[0] = add(v[0], t);
+  v[1] = add(m, d);
+  v[2] = sub(m, d);
+}
+
+// X[k] = sum_m v[m] W^(m k), W = exp(-2 pi i / 5), from the sums and
+// differences of the points m and 5 - m.
+__device__ __forceinline__ void dft5(double2* v) {
+  constexpr double c1 = 0.30901699437494742410;   // cos(2 pi / 5)
+  constexpr double c2 = -0.80901699437494742410;  // cos(4 pi / 5)
+  constexpr double s1 = 0.95105651629515357212;   // sin(2 pi / 5)
+  constexpr double s2 = 0.58778525229247312917;   // sin(4 pi / 5)
+  const double2 a1 = add(v[1], v[4]), b1 = sub(v[1], v[4]);
+  const double2 a2 = add(v[2], v[3]), b2 = sub(v[2], v[3]);
+  const double2 m1 = make_double2(v[0].x + c1 * a1.x + c2 * a2.x, v[0].y + c1 * a1.y + c2 * a2.y);
+  const double2 m2 = make_double2(v[0].x + c2 * a1.x + c1 * a2.x, v[0].y + c2 * a1.y + c1 * a2.y);
+  // -i (s1 b1 + s2 b2) and -i (s2 b1 - s1 b2)
+  const double2 d1 = mul_neg_i(make_double2(s1 * b1.x + s2 * b2.x, s1 * b1.y + s2 * b2.y));
+  const double2 d2 = mul_neg_i(make_double2(s2 * b1.x - s1 * b2.x, s2 * b1.y - s1 * b2.y));
+  v[0] = add(v[0], add(a1, a2));
+  v[1] = add(m1, d1);
+  v[4] = sub(m1, d1);
+  v[2] = add(m2, d2);
+  v[3] = sub(m2, d2);
+}
+
 template <int R>
 __device__ __forceinline__ void dft(double2* v) {
   if constexpr (R == 8) {
     dft8(v);
   } else if constexpr (R == 4) {
     dft4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 5) {
+    dft5(v);
+  } else if constexpr (R == 3) {
+    dft3(v);
   } else {
     dft2(v);
   }
@@ -178,12 +228,10 @@ struct Store {
 template <int R>
 __device__ __forceinline__ void powers(double2 w, double2* wr) {
   wr[1] = w;
-  if constexpr (R > 2) {
-    wr[2] = mul(w, w);
-    wr[3] = mul(wr[2], w);
-  }
-  if constexpr (R > 4) {
-    wr[4] = mul(wr[2], wr[2]);
+  if constexpr (R > 2) wr[2] = mul(w, w);
+  if constexpr (R > 3) wr[3] = mul(wr[2], w);
+  if constexpr (R > 4) wr[4] = mul(wr[2], wr[2]);
+  if constexpr (R > 5) {
     wr[5] = mul(wr[4], w);
     wr[6] = mul(wr[4], wr[2]);
     wr[7] = mul(wr[4], wr[3]);
@@ -292,6 +340,97 @@ template <class Last>
 __device__ inline void fft(double2* a, double2* b, const double2* tw, int log2h, int frames,
                            int stride, const Last& last) {
   fft_from(Load{a, stride}, b, a, stride, tw, log2h, frames, last);
+}
+
+// --- Mixed radix (kernel D) ---------------------------------------------------
+
+// The stages of an h-point FFT, h = 2^log2p 5^fives 3^threes: the
+// power-of-two plan of stages(log2p), then the fives, then the threes.
+// valid() is false where h has another prime factor.
+struct Plan {
+  int log2p, fives, threes, rest;  // rest: h without its factors 2, 3 and 5
+  __host__ __device__ __forceinline__ bool valid() const { return rest == 1; }
+  __host__ __device__ __forceinline__ bool mixed() const { return fives + threes > 0; }
+  __host__ __device__ __forceinline__ int count() const { return stages(log2p) + fives + threes; }
+  // the radix of stage s < count()
+  __host__ __device__ __forceinline__ int radix(int s) const {
+    const int s2 = stages(log2p);
+    if (s < s2) {
+      const int left = log2p - 3 * s;  // factors of two still to go
+      return left >= 3 ? 8 : 1 << left;
+    }
+    return s - s2 < fives ? 5 : 3;
+  }
+};
+
+__host__ __device__ inline Plan plan(int h) {
+  Plan p{0, 0, 0, h};
+  for (; p.rest > 1 && p.rest % 2 == 0; p.rest /= 2) ++p.log2p;
+  for (; p.rest > 1 && p.rest % 5 == 0; p.rest /= 5) ++p.fives;
+  for (; p.rest > 1 && p.rest % 3 == 0; p.rest /= 3) ++p.threes;
+  return p;
+}
+
+// One Stockham stage of radix R over `frames` frames of h points read as
+// in(f, i); ns is the product of the earlier stages' radices: stage()'s
+// arithmetic with divisions for its shifts.  No barrier.
+template <int R, class In, class Out>
+__device__ __forceinline__ void mixed_stage(const In& in, const double2* tw, int h, int ns,
+                                            int frames, const Out& out) {
+  const int nb = h / R;            // butterflies per frame
+  const int tstep = h / (ns * R);  // twiddle index k * h / (ns * R)
+  for (int q = threadIdx.x; q < frames * nb; q += blockDim.x) {
+    const int f = q / nb;
+    const int j = q - f * nb;
+    double2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = in(f, j + r * nb);
+    const int k = j % ns;
+    if (ns > 1) {
+      double2 wr[R];
+      powers<R>(twiddle(tw, k * tstep, h), wr);
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = mul(v[r], wr[r]);
+    }
+    dft<R>(v);
+    const int base = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) out(f, base + r * ns, v[r]);
+  }
+}
+
+template <class In, class Out>
+__device__ __forceinline__ void run_mixed_stage(int radix, const In& in, const double2* tw,
+                                                int h, int ns, int frames, const Out& out) {
+  switch (radix) {
+    case 8: mixed_stage<8>(in, tw, h, ns, frames, out); break;
+    case 4: mixed_stage<4>(in, tw, h, ns, frames, out); break;
+    case 2: mixed_stage<2>(in, tw, h, ns, frames, out); break;
+    case 5: mixed_stage<5>(in, tw, h, ns, frames, out); break;
+    default: mixed_stage<3>(in, tw, h, ns, frames, out); break;
+  }
+}
+
+// fft() for h = 2^a 3^b 5^c points after plan(h) (p): the same contract,
+// with p.count() stages in place of stages(log2h): a Store keeps the outputs
+// in b when the count is odd, else in a.
+template <class Last>
+__device__ inline void fft_mixed(double2* a, double2* b, const double2* tw, int h, const Plan& p,
+                                 int frames, int stride, const Last& last) {
+  const int count = p.count();
+  double2* src = a;
+  double2* dst = b;
+  int ns = 1;
+  for (int s = 0; s + 1 < count; ++s) {
+    const int radix = p.radix(s);
+    run_mixed_stage(radix, Load{src, stride}, tw, h, ns, frames, Store{dst, stride});
+    __syncthreads();
+    double2* t = src;
+    src = dst;
+    dst = t;
+    ns *= radix;
+  }
+  run_mixed_stage(p.radix(count - 1), Load{src, stride}, tw, h, ns, frames, last);
 }
 
 // Split post-pass for 0 <= k <= h/2: from zk = Z[k], zc = Z[(h - k) mod h]

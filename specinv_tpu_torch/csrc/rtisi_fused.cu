@@ -60,10 +60,15 @@
 //
 // Each real frame is transformed as an n/2-point complex FFT with the split
 // post- and pre-passes of rfft.cuh, in radix-8/4/2 register stages with one
-// barrier per stage, in FP64 (rfft.cuh says why); the split post-pass,
-// momentum, projection and split pre-pass are one pass over the bin pairs
-// (k, h - k), the gather writes the first stage's input and the last
-// inverse stage writes upd.
+// barrier per stage, in FP64 (rfft.cuh says why); where n/2 = 2^a 3^b 5^c is
+// no power of two (n_fft 400), the kernel's MIXED instance runs rfft.cuh's
+// mixed-radix plan instead (n/2 = 200: one radix-8 and two radix-5 stages),
+// and the power-of-two instance keeps the power-of-two stages (their shifts:
+// the mixed plan's divisions took 243 against 184 us a step at n_fft 2048,
+// 16 streams, on an H100 80GB HBM3 at 700 W); the split
+// post-pass, momentum, projection and split pre-pass are one pass over the
+// bin pairs (k, h - k), the gather writes the first stage's input and the
+// last inverse stage writes upd.
 //
 // The arithmetic does not depend on k or on where a step sits in a launch:
 // every step runs the same code on the same state, and the products and
@@ -198,6 +203,7 @@ __device__ __forceinline__ float2 middle(float2 x, float2* pre, float tgt, float
   return make_float2(__fmul_rn(v.x, g), __fmul_rn(v.y, g));
 }
 
+template <bool MIXED>
 __global__ void __launch_bounds__(kMaxThreads, 1) rtisi_steps_kernel(
     float* keep,                         // (B, nk, n), updated in place
     float* upd,                          // (B, R, n), updated in place
@@ -215,7 +221,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) rtisi_steps_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem[];
   const int n = g.n, h = n / 2, F = h + 1, R = g.R, hop = g.hop, nk = g.nk;
+  // the transform's plan: log2h in the power-of-two instance, fp in the mixed one
   const int log2h = 31 - __clz(h);
+  const specinv::rfft::Plan fp = MIXED ? specinv::rfft::plan(h) : specinv::rfft::Plan{};
   const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.x / g.cluster;
   const int p0 = rank * g.fpc;           // this CTA's first slot
@@ -378,15 +386,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1) rtisi_steps_kernel(
         PHASE_MARK(2)
         // the forward transform's result lands in the second buffer when
         // the stage count is odd, else in the first
-        const int odd = specinv::rfft::stages(log2h) & 1;
+        const int odd = (MIXED ? fp.count() : specinv::rfft::stages(log2h)) & 1;
         double2* spec = fft_s + odd * hp;
-        specinv::rfft::fft(fft_s, fft_s + hp, tw_s, log2h, gn, 2 * hp,
-                           specinv::rfft::Store{spec, 2 * hp});
+        if constexpr (MIXED) {
+          specinv::rfft::fft_mixed(fft_s, fft_s + hp, tw_s, h, fp, gn, 2 * hp,
+                                   specinv::rfft::Store{spec, 2 * hp});
+        } else {
+          specinv::rfft::fft(fft_s, fft_s + hp, tw_s, log2h, gn, 2 * hp,
+                             specinv::rfft::Store{spec, 2 * hp});
+        }
         __syncthreads();
 
         PHASE_MARK(3)
         // Split post-pass, momentum and projection, split pre-pass, over the
-        // bin pairs (kk, h - kk); kk = 0 pairs DC with bin h.
+        // bin pairs (kk, h - kk); kk = 0 pairs DC with bin h, and kk = h/2 is
+        // one bin, where h is even (the mixed instance also takes an odd h).
         for (int f = 0; f < gn; ++f) {
           double2* z = spec + f * 2 * hp;
           float2* pre_f = pre_s + static_cast<size_t>(fi0 + l0 + f) * F;
@@ -394,13 +408,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) rtisi_steps_kernel(
           for (int kk = threadIdx.x; kk <= h / 2; kk += bd) {
             const int kc = kk == 0 ? 0 : h - kk;
             const double2 w = tw_s[kk];
+            const bool pair = kk != h / 2 || (MIXED && (h & 1));
             double2 xk, xc;
             specinv::rfft::split_forward(z[specinv::rfft::at(kk)], z[specinv::rfft::at(kc)], w,
                                          xk, xc);
             // the middle in float32, on the bins rounded to float32
             float2 yk = middle(narrow(xk), pre_f + kk, tgt_f[kk], g.lr, g.fscale);
             float2 yc = yk;
-            if (kk != h / 2) {
+            if (pair) {
               yc = middle(narrow(xc), pre_f + (h - kk), tgt_f[h - kk], g.lr, g.fscale);
             }
             if (kk == 0) {  // the inverse of a real frame reads only their real parts
@@ -411,15 +426,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1) rtisi_steps_kernel(
             specinv::rfft::split_inverse(make_double2(yk.x, yk.y), make_double2(yc.x, yc.y), w,
                                          zk, zc);
             z[specinv::rfft::at(kk)] = zk;
-            if (kk != 0 && kk != h / 2) z[specinv::rfft::at(kc)] = zc;
+            if (kk != 0 && pair) z[specinv::rfft::at(kc)] = zc;
           }
         }
         __syncthreads();
         PHASE_MARK(4)
         // the inverse transform's last stage writes the frames' new upd
-        specinv::rfft::fft(spec, spec == fft_s ? fft_s + hp : fft_s, tw_s, log2h, gn, 2 * hp,
-                           WriteFrames{dst + static_cast<size_t>(p0 + l0) * n, n,
-                                       g.resident ? g.cluster : 0, g.iscale});
+        if constexpr (MIXED) {
+          specinv::rfft::fft_mixed(spec, spec == fft_s ? fft_s + hp : fft_s, tw_s, h, fp, gn,
+                                   2 * hp,
+                                   WriteFrames{dst + static_cast<size_t>(p0 + l0) * n, n,
+                                               g.resident ? g.cluster : 0, g.iscale});
+        } else {
+          specinv::rfft::fft(spec, spec == fft_s ? fft_s + hp : fft_s, tw_s, log2h, gn, 2 * hp,
+                             WriteFrames{dst + static_cast<size_t>(p0 + l0) * n, n,
+                                         g.resident ? g.cluster : 0, g.iscale});
+        }
         __syncthreads();  // the next group reuses the FFT scratch
         PHASE_MARK(5)
       }
@@ -473,8 +495,10 @@ extern "C" {
 // k RTISI-LA steps for B streams: keep, upd and pre are updated in place,
 // com receives the committed frames.  The launch plan (cluster, fpc, group,
 // resident, threads, smem, stride) is rtisi_fused.plan's; scratch holds
-// B * stride floats when the state is not resident.  Returns the first CUDA
-// error (0 if none); a plan that does not match this layout is
+// B * stride floats when the state is not resident.  n/2 a power of two runs
+// the power-of-two instance, n/2 = 2^a 3^b 5^c otherwise the mixed one.
+// Returns the first CUDA error (0 if none); an odd n, an n/2 with another
+// prime factor or a plan that does not match this layout is
 // cudaErrorInvalidValue.
 int specinv_rtisi_steps(float* keep, float* upd, float2* pre, const float* target,
                         const float* window, const float* aw_first, const float* aw_rest,
@@ -483,15 +507,17 @@ int specinv_rtisi_steps(float* keep, float* upd, float2* pre, const float* targe
                         int cluster, int fpc, int group, int resident, int threads, int smem,
                         long long stride, float lr, float fscale, float iscale,
                         cudaStream_t stream) {
-  if (cluster < 1 || cluster > kMaxCluster || fpc < 1 || (cluster - 1) * fpc >= R ||
-      cluster * fpc < R || group < 1 || group > fpc || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || n / 2 > kPairs * threads ||
+  const specinv::rfft::Plan fp = specinv::rfft::plan(n / 2);
+  if (n % 2 != 0 || !fp.valid() || cluster < 1 || cluster > kMaxCluster || fpc < 1 ||
+      (cluster - 1) * fpc >= R || cluster * fpc < R || group < 1 || group > fpc ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || n / 2 > kPairs * threads ||
       shared_bytes(n, R, fpc, group, resident) != static_cast<size_t>(smem) ||
       (!resident && stride < static_cast<long long>(R) * frame_floats(n))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      rtisi_steps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = fp.mixed() ? rtisi_steps_kernel<true> : rtisi_steps_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -507,8 +533,8 @@ int specinv_rtisi_steps(float* keep, float* upd, float2* pre, const float* targe
   config.numAttrs = 1;
   const Geometry g{B, k, R, nk, n, hop, max_iter, cluster, fpc, group, resident, stride,
                    lr, fscale, iscale};
-  err = cudaLaunchKernelEx(&config, rtisi_steps_kernel, keep, upd, pre, target, window,
-                           aw_first, aw_rest, synth, tw, com, scratch, g);
+  err = cudaLaunchKernelEx(&config, kernel, keep, upd, pre, target, window, aw_first, aw_rest,
+                           synth, tw, com, scratch, g);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

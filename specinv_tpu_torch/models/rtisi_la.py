@@ -16,9 +16,10 @@ la+1, F)`` complex):
 
 * ``'kernel'``: the hand-written CUDA kernel (``ops/cuda/rtisi_fused``), the
   counterpart of the JAX ``pallas4`` path: ``frames_per_launch`` output-frame
-  steps per launch (8 by default), float32 only.  On a CPU tensor it runs
-  the kernel's plain version.  The streamer launches it with one step per
-  push.
+  steps per launch (8 by default), float32 only, at an even n_fft in [16,
+  4096] whose half is 2^a 3^b 5^c (Whisper's 400 included).  On a CPU
+  tensor it runs the kernel's plain version.  The streamer launches it with
+  one step per push.
 * ``'fft'``: the literal step on ``torch.fft`` (:func:`_frame_step`), the
   JAX XLA path's counterpart and the speed baseline on the card.
 
@@ -358,8 +359,9 @@ def RTISI_LA(
     disables look-ahead (original RTISI).  Input is a magnitude spectrogram
     ``(F, T)`` / ``(B, F, T)`` (a tensor on any device, or an array, which
     goes to the card); the waveform comes back on the same device.
-    ``backend`` is ``'auto'``, ``'kernel'`` (float32, onesided, n_fft a power
-    of two in [16, 4096], hop <= n_fft, a real window) or ``'fft'``;
+    ``backend`` is ``'auto'``, ``'kernel'`` (float32, onesided, an even
+    n_fft in [16, 4096] whose half is 2^a 3^b 5^c, hop <= n_fft, a real
+    window) or ``'fft'``;
     ``precision`` (None, ``'high'``, ``'highest'``), ``chunk_rows`` (at
     most this many DFT rows ``B * (look_ahead + 1)`` per launch; larger
     batches run as sequential launches, bitwise equal; by default every

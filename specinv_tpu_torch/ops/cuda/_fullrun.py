@@ -77,14 +77,16 @@ def frame_plan(rows: int, n_fft: int) -> FramePlan:
     return FramePlan(2 * fpb, 2 * fpb * tpf, smem, True)
 
 
+def supports_frames(cfg: STFTConfig, window) -> bool:
+    """The frame rule of the kernels on ``csrc/rfft.cuh`` (A, C and D):
+    0 < hop <= n_fft, and a real window."""
+    return 0 < cfg.hop_length <= cfg.n_fft and not torch.as_tensor(window).is_complex()
+
+
 def supports(cfg: STFTConfig, window) -> bool:
     """Whether the kernels take this config: n_fft a power of two in
     [16, 4096], 0 < hop <= n_fft, and a real window."""
-    return (
-        supported_size(cfg.n_fft)
-        and 0 < cfg.hop_length <= cfg.n_fft
-        and not torch.as_tensor(window).is_complex()
-    )
+    return supported_size(cfg.n_fft) and supports_frames(cfg, window)
 
 
 def outputs(x, state, mag, stats, emit_state, with_mag, with_loss):

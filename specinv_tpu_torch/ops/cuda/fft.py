@@ -36,7 +36,9 @@ def supported_size(n: int) -> bool:
 def twiddles(n: int, device: torch.device, dtype: torch.dtype = torch.complex64) -> torch.Tensor:
     """exp(-2*pi*i*k/n), k < n/2, computed in float64, stored as ``dtype``
     (complex128 for the FP64 transform of ``csrc/rfft.cuh``, which every
-    kernel that reads the table runs).
+    kernel that reads the table runs).  Any even ``n``: the mixed-radix
+    stages read exp(-2*pi*i*m/h), h = n/2, as entry 2m, or minus entry
+    2m - h past a half turn, as the power-of-two ones do.
 
     Cached per device: a fresh host-to-device copy per launch would make
     every launch wait for the host.

@@ -11,8 +11,11 @@ k + la, F)``; it returns ``(committed (k, B, n_fft), keeped, update, pre)``.
 
 On a CPU tensor it runs :func:`fused_rtisi_steps_reference`; on a CUDA
 tensor it queues one launch on the current stream with no host sync, or
-raises.  The launch is one thread-block cluster per stream; :func:`plan`
-says how the ``R = la + 1`` in-flight frames spread over its CTAs and where
+raises.  The kernel takes an even n_fft in [16, 4096] whose half is
+2^a 3^b 5^c (:func:`supported_size`): where the half is no power of two
+(n_fft 400) it runs the mixed-radix stages of ``csrc/rfft.cuh``.  The
+launch is one thread-block cluster per stream; :func:`plan` says how the
+``R = la + 1`` in-flight frames spread over its CTAs and where
 their state lives (``csrc/rtisi_fused.cu`` explains the design).  Gradients
 flow through a ``torch.autograd.Function`` whose backward replays the plain
 twin (``ops/twins.rtisi_steps_twin``) under autograd, as the JAX package's
@@ -28,12 +31,15 @@ from ...config import STFTConfig
 from ...utils.profiling import span
 from ..twins import RTISIWindows, replay, rtisi_steps_twin
 from . import _build, _fullrun
-from .fft import scales, twiddles
+from .fft import MAX_N, MIN_N, scales, twiddles
 
-UNSUPPORTED = f"onesided spectra, {_fullrun.UNSUPPORTED}"
+UNSUPPORTED = ("onesided spectra, an even n_fft in [16, 4096] whose half is 2^a 3^b 5^c, "
+               "0 < hop <= n_fft and a real window")
 
-# Kernel launches (one per call of fused_rtisi_steps on CUDA tensors).
+# Kernel launches (one per call of fused_rtisi_steps on CUDA tensors), and
+# those of them whose transform has a radix-5 or radix-3 stage.
 launches = 0
+mixed_radix_launches = 0
 
 SHARED_BYTES = 232448  # the most dynamic shared memory a block takes on Hopper (227 KB)
 MAX_CLUSTER = 8        # the portable cluster size
@@ -96,10 +102,26 @@ def plan(n_fft: int, R: int) -> Plan:
     return Plan(cluster, fpc, group, resident, threads, smem, scratch)
 
 
+def supported_size(n: int) -> bool:
+    """An even n in [16, 4096] whose half is 2^a 3^b 5^c: the sizes of the
+    kernel's transform."""
+    h = n // 2
+    for p in (2, 3, 5):
+        while h > 1 and h % p == 0:
+            h //= p
+    return MIN_N <= n <= MAX_N and n % 2 == 0 and h == 1
+
+
+def mixed_radix(n: int) -> bool:
+    """Whether the transform of a supported n has a radix-5 or radix-3
+    stage: n/2 has a factor 3 or 5 (``rfft::Plan::mixed``)."""
+    return (n // 2) % 3 == 0 or (n // 2) % 5 == 0
+
+
 def supports(cfg: STFTConfig, window) -> bool:
-    """Whether the kernel takes this config: onesided, n_fft a power of two
-    in [16, 4096], 0 < hop <= n_fft, and a real window."""
-    return cfg.onesided and _fullrun.supports(cfg, window)
+    """Whether the kernel takes this config: onesided, n_fft of
+    :func:`supported_size`, 0 < hop <= n_fft, and a real window."""
+    return cfg.onesided and supported_size(cfg.n_fft) and _fullrun.supports_frames(cfg, window)
 
 
 def fused_rtisi_steps_reference(keeped, update, pre, target, windows: RTISIWindows, lr,
@@ -125,7 +147,7 @@ def _check(keeped, update, pre, target, windows, cfg: STFTConfig):
 def _launch(keeped, update, pre, target, windows: RTISIWindows, lr, cfg: STFTConfig,
             max_iter: int):
     """Queue one launch of ``k`` steps; returns (committed, keeped, update, pre)."""
-    global launches
+    global launches, mixed_radix_launches
     _check(keeped, update, pre, target, windows, cfg)
     B, R, n = update.shape
     k = target.shape[-2] - R + 1
@@ -141,6 +163,7 @@ def _launch(keeped, update, pre, target, windows: RTISIWindows, lr, cfg: STFTCon
     fscale, iscale = scales(n, cfg.normalized)
     fn = _build.library().specinv_rtisi_steps
     launches += 1
+    mixed_radix_launches += mixed_radix(n)
     code = fn(
         keep.data_ptr(), upd.data_ptr(), pre.data_ptr(), target.data_ptr(),
         *(w.data_ptr() for w in windows), twiddles(n, dev, torch.complex128).data_ptr(),

@@ -578,6 +578,127 @@ def test_rtisi_step_matches_plain_version(dev, n_fft, look_ahead, batch):
             assert err <= RTISI_STEP_LIMITS[name], (name, err)
 
 
+# Kernel D where n_fft / 2 is 2^a 3^b 5^c and no power of two: the mixed-radix
+# stages of csrc/rfft.cuh (400 / 160: one radix-8 and two radix-5 stages;
+# 450 / 150: n_fft / 2 = 225 is odd, so D's bin pairs have no middle bin).
+MIXED_RADIX = [(400, 160), (320, 80), (480, 120), (1200, 300), (450, 150)]
+
+
+def _mixed_case(dev, n_fft, hop, batch, seconds, sr=16000):
+    """Speech-like clips' magnitudes (B, F, T) at a periodic hann window."""
+    clips = np.stack([make_speech_like(int(sr * seconds), sr=sr, seed=s) for s in range(batch)])
+    window = torch.hann_window(n_fft, device=dev)
+    mag = st.stft(torch.from_numpy(clips.astype(np.float32)).to(dev), n_fft, hop_length=hop,
+                  window=window).abs()
+    return mag, window
+
+
+def _rel_max(a, b) -> float:
+    a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+    return float((a.double() - b.double()).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("n_fft,hop", MIXED_RADIX)
+def test_rtisi_mixed_radix_steps_match_plain_version(dev, n_fft, hop):
+    """At the entry's default look-ahead ((n_fft - 1) // hop), 8 one-step
+    launches, each from the plain version's state (5 refinements, as the
+    power-of-two cases), against the plain float32 step and a float64 one:
+    the committed and kept frames within RTISI_STEP_LIMITS of the plain
+    version; the in-flight frames and the momentum too, or, where the
+    geometry makes float32 rounding itself move them further, no farther
+    from float64 than twice the plain float32 version is.  At 400 / 160
+    and 1200 / 300 the newest frame's projection is so ill-conditioned that
+    the float64 step moves its update by 2e-3 to 9e-3 (and its momentum by
+    1e-3 to 4e-3) when the state moves by one float32 rounding, at 450 / 150
+    by 7e-5 to 1e-4 (4e-5 to 6e-5), all above the 1e-5 limit, while the
+    kernel lay at most 0.4 to 0.5 of the plain float32 version's distance
+    from float64 (an NVIDIA H100 80GB HBM3, 700 W).
+    Then: an 8-step launch commits what 8 one-step launches from the
+    kernel's own states commit, bit for bit, and every launch counts as a
+    mixed-radix one."""
+    mag, window = _mixed_case(dev, n_fft, hop, 3, 1.0)
+    cfg, _ = canonicalize(n_fft // 2 + 1, np.float32, window=window.cpu().numpy(),
+                          hop_length=hop)
+    nk = (n_fft - 1) // hop
+    la, steps, lr, iters = nk, 8, 0.99 / 1.99, 5
+    target = torch.nn.functional.pad(mag.transpose(-1, -2), (0, 0, la, la)).contiguous()
+    state = (torch.zeros(3, nk, n_fft, device=dev), rtisi_la._seed_update(target, la, cfg),
+             torch.zeros(3, la + 1, n_fft // 2 + 1, dtype=torch.complex64, device=dev))
+    windows = rtisi_la.rtisi_windows(window, cfg, False)
+    w64 = type(windows)(*(w.double() for w in windows))
+    _, *state = rtisi_fused.fused_rtisi_steps_reference(*state, target[:, : 4 + la], windows, lr,
+                                                        cfg, iters)
+    tgt = target[:, 4 : 4 + steps + la].contiguous()
+    before = (rtisi_fused.launches, rtisi_fused.mixed_radix_launches)
+    # per output, the worst (kernel - plain, kernel - float64, plain - float64)
+    worst = {name: (0.0, 0.0, 0.0) for name in RTISI_STEP_LIMITS}
+    plain = state
+    for i in range(steps):
+        rows = tgt[:, i : i + la + 1].contiguous()
+        ours = rtisi_fused.fused_rtisi_steps(*plain, rows, windows, lr, cfg, iters)
+        ref = rtisi_fused.fused_rtisi_steps_reference(*plain, rows, windows, lr, cfg, iters)
+        wide = (t.to(torch.complex128 if t.is_complex() else torch.float64) for t in (*plain, rows))
+        f64 = rtisi_fused.fused_rtisi_steps_reference(*wide, w64, lr, cfg, iters)
+        for name, a, b, c in zip(RTISI_STEP_LIMITS, ours, ref, f64):
+            worst[name] = tuple(map(max, worst[name], (_rel_max(a, b), _rel_max(a, c),
+                                                       _rel_max(b, c))))
+        plain = ref[1:]
+    for name, (ours_plain, ours_f64, plain_f64) in worst.items():
+        held = ours_plain <= RTISI_STEP_LIMITS[name]
+        if name in ("update", "pre"):
+            held = held or ours_f64 <= 2 * plain_f64
+        assert held, (name, worst[name])
+    whole = rtisi_fused.fused_rtisi_steps(*state, tgt, windows, lr, cfg, iters)
+    chain, coms = state, []
+    for i in range(steps):
+        com, *chain = rtisi_fused.fused_rtisi_steps(*chain, tgt[:, i : i + la + 1].contiguous(),
+                                                    windows, lr, cfg, iters)
+        coms.append(com)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[0], torch.cat(coms))
+    assert all(torch.equal(a, b) for a, b in zip(whole[1:], chain))
+    launches = 2 * steps + 1
+    assert (rtisi_fused.launches - before[0], rtisi_fused.mixed_radix_launches - before[1]) == (
+        launches, launches)
+
+
+@pytest.mark.parametrize("n_fft,hop", MIXED_RADIX)
+def test_rtisi_mixed_radix_auto_runs_kernel_d_offline_and_streaming(dev, n_fft, hop,
+                                                                    monkeypatch):
+    """RTISI_LA and RTISIStreamer on 'auto' (25 refinements, the default
+    look-ahead) launch kernel D, 8 steps a launch offline and one a push,
+    and commit the same frames bit for bit."""
+    mag, window = _mixed_case(dev, n_fft, hop, 2, 0.5)
+    T, la = mag.shape[-1], (n_fft - 1) // hop
+    recorded, synthesize = [], rtisi_la.synthesize
+
+    def record(frames, *args):
+        recorded.append(frames)
+        return synthesize(frames, *args)
+
+    monkeypatch.setattr(rtisi_la, "synthesize", record)
+    before = (rtisi_fused.launches, rtisi_fused.mixed_radix_launches)
+    st.RTISI_LA(mag, look_ahead=-1, hop_length=hop, window=window, verbose=False)
+    assert (rtisi_fused.launches - before[0], rtisi_fused.mixed_radix_launches - before[1]) == (
+        -(-(T + la) // 8),) * 2
+
+    class Recording(st.RTISIStreamer):
+        def _emit(self, committed):
+            self.committed.append(committed)
+            return super()._emit(committed)
+
+    streamer = Recording(n_fft // 2 + 1, look_ahead=-1, batch=2, hop_length=hop, window=window)
+    streamer.committed = []
+    before = rtisi_fused.mixed_radix_launches
+    for t in range(T):
+        streamer.push(mag[..., t])
+    streamer.flush()
+    torch.cuda.synchronize()
+    assert streamer.backend == "kernel"
+    assert rtisi_fused.mixed_radix_launches - before == T + la
+    assert torch.equal(torch.stack(streamer.committed), recorded[0])
+
+
 # --- the raw per-iteration dispatch (K4, K6) ---------------------------------
 
 RAW = {

@@ -207,7 +207,9 @@ def test_supports_and_checks():
     cfg, w = tcanon(1025, np.float32, hop_length=512)
     win = torch.from_numpy(w)
     assert rtisi_fused.supports(cfg, win)
-    for bins, kw in ((201, dict(hop_length=160)), (1025, dict(hop_length=4096)),
+    whisper, ww = tcanon(201, np.float32, hop_length=160)  # n_fft 400: n/2 = 2^3 5^2
+    assert rtisi_fused.supports(whisper, torch.from_numpy(ww))
+    for bins, kw in ((442, dict(hop_length=220)), (1025, dict(hop_length=4096)),
                      (4097, {}), (1024, dict(onesided=False))):
         c, wc = tcanon(bins, np.float32, **kw)
         assert not rtisi_fused.supports(c, torch.from_numpy(wc))
@@ -224,7 +226,7 @@ def test_supports_and_checks():
             rtisi_fused._check(*args, windows, cfg)
 
 
-@pytest.mark.parametrize("n_fft", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n_fft", [16, 32, 64, 128, 256, 400, 512, 1024, 1200, 2048, 4096])
 def test_launch_plan_covers_every_admitted_shape(n_fft):
     """The kernel's launch plan for every hop (powers of two up to n_fft)
     and every count R of in-flight frames up to n_fft / hop: each CTA owns
